@@ -1,0 +1,161 @@
+"""Convert the JAX package's parameters into this package's state dicts.
+
+Inputs are nested dicts of numpy arrays, as flax ``params`` trees come out of
+``jax.device_get``, or flat dicts with ``/``-joined keys, as in the
+``decoder_*.npz`` files (``params/trunk_0/kernel``). No JAX is needed.
+
+- Dense ``kernel (in, out)`` -> Linear ``weight (out, in)``.
+- Conv ``kernel (kh, kw, in, out)`` (HWIO) -> Conv2d ``weight (out, in, kh, kw)``.
+- Attention qkv / proj_out Dense -> Conv1d ``weight (out, in, 1)``.
+- GroupNorm ``scale`` -> ``weight``.
+
+The walk mirrors ``humanliff_tpu/compat/torch_import.py::unet_params_from_state_dict``
+in reverse, so a port state dict maps back through it to the same flax tree.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def unflatten(flat: Mapping[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """``{"params/a/kernel": x}`` -> ``{"params": {"a": {"kernel": x}}}``;
+    keys starting with ``__`` (npz metadata) are dropped."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        if key.startswith("__"):
+            continue
+        node = tree
+        *parents, leaf = key.split(sep)
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def _params(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    if any("/" in k for k in tree):
+        tree = unflatten(tree)
+    return tree["params"] if "params" in tree else tree
+
+
+def _t(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _dense(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _conv1d(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _groupnorm(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _t(p["GroupNorm_0"]["scale"])
+    sd[f"{prefix}.bias"] = _t(p["GroupNorm_0"]["bias"])
+
+
+_DECODER_NAMES = {
+    "trunk_0": "pts_linears.0",
+    "trunk_1": "pts_linears.1",
+    "trunk_2": "pts_linears.2",
+    "alpha": "alpha_linear",
+    "feature": "feature_linear",
+    "views": "views_linear",
+    "rgb": "rgb_linear",
+}
+
+
+def decoder_state_dict(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``NeRFDecoder`` variables (nested or flat npz keys) -> port ``NeRFDecoder``."""
+    p = _params(params)
+    sd: StateDict = {}
+    for ours, theirs in _DECODER_NAMES.items():
+        _dense(sd, theirs, p[ours])
+    return sd
+
+
+def _resblock(sd: StateDict, prefix: str, p) -> None:
+    _groupnorm(sd, f"{prefix}.in_layers.0", p["in_norm"])
+    _conv(sd, f"{prefix}.in_layers.2", p["in_conv"])
+    _dense(sd, f"{prefix}.emb_layers.1", p["emb_proj"])
+    _groupnorm(sd, f"{prefix}.out_layers.0", p["out_norm"])
+    _conv(sd, f"{prefix}.out_layers.3", p["out_conv"]["Conv_0"])
+    if "skip_conv" in p:
+        _conv(sd, f"{prefix}.skip_connection", p["skip_conv"])
+
+
+def _attn(sd: StateDict, prefix: str, p) -> None:
+    _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
+    _conv1d(sd, f"{prefix}.qkv", p["qkv"])
+    _conv1d(sd, f"{prefix}.proj_out", p["proj_out"]["Dense_0"])
+
+
+def unet_state_dict(
+    params: Mapping[str, Any],
+    num_res_blocks: int = 3,
+    channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
+    attention_ds: Sequence[int] = (8, 16, 32),
+) -> StateDict:
+    """JAX ControlNet ``UNetModel`` variables -> port ``UNetModel`` state dict."""
+    p = _params(params)
+    sd: StateDict = {}
+    _dense(sd, "time_embed.0", p["time_mlp_1"])
+    _dense(sd, "time_embed.2", p["time_mlp_2"])
+    if "label_emb" in p:
+        sd["label_emb.weight"] = _t(p["label_emb"]["embedding"])
+
+    def encoder(torch_prefix: str, ours: str) -> int:
+        _conv(sd, f"{torch_prefix}.0.0", p[f"{ours}in_conv"])
+        ds, idx = 1, 1
+        for level in range(len(channel_mult)):
+            for _ in range(num_res_blocks):
+                _resblock(sd, f"{torch_prefix}.{idx}.0", p[f"{ours}res_{idx}"])
+                if ds in attention_ds:
+                    _attn(sd, f"{torch_prefix}.{idx}.1", p[f"{ours}attn_{idx}"])
+                idx += 1
+            if level != len(channel_mult) - 1:
+                _conv(sd, f"{torch_prefix}.{idx}.0.op", p[f"{ours}down_{idx}"]["op"])
+                ds *= 2
+                idx += 1
+        return idx
+
+    n_enc = encoder("input_blocks", "enc_")
+    _resblock(sd, "middle_block.0", p["mid_res1"])
+    _attn(sd, "middle_block.1", p["mid_attn"])
+    _resblock(sd, "middle_block.2", p["mid_res2"])
+
+    ds = 2 ** (len(channel_mult) - 1)
+    idx = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(num_res_blocks + 1):
+            _resblock(sd, f"output_blocks.{idx}.0", p[f"dec_res_{idx}"])
+            pos = 1
+            if ds in attention_ds:
+                _attn(sd, f"output_blocks.{idx}.{pos}", p[f"dec_attn_{idx}"])
+                pos += 1
+            if level and i == num_res_blocks:
+                _conv(sd, f"output_blocks.{idx}.{pos}.conv", p[f"dec_up_{idx}"]["conv"])
+                ds //= 2
+            idx += 1
+
+    _groupnorm(sd, "out.0", p["out_norm"])
+    _conv(sd, "out.2", p["out_conv"]["Conv_0"])
+
+    encoder("input_blocks_cond", "cond_")
+    for i in range(n_enc):
+        _conv(sd, f"input_blocks_proj_cond.{i}", p[f"cond_proj_{i}"]["Conv_0"])
+    return sd

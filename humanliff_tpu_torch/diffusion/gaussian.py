@@ -1,0 +1,198 @@
+"""DDPM ancestral sampling with x_cond threaded through (port of
+``humanliff_tpu/diffusion/gaussian.py``; reference improved_diffusion/
+gaussian_diffusion.py).
+
+Schedule constants are float64 numpy on the host and become fp32 device
+tensors once per device, so the sampling loop makes no host round trip.
+Samples are NHWC, so the learned-sigma split is on the last axis.
+
+Model callable: ``model_fn(x, t_scaled, x_cond, **model_kwargs) -> output``,
+where ``t_scaled`` already carries the respacing map and the [0, 1000) rescale.
+
+Noise: JAX draws each step's noise from ``jax.random.split(k_loop, T)``,
+which torch cannot reproduce. :meth:`GaussianDiffusion.p_sample_loop` draws
+from a ``torch.Generator``, or takes the initial noise and a per-step noise
+source from the caller, which is how the tests feed both packages the same
+noise.
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import Any, Callable, Dict, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+ModelFn = Callable[..., torch.Tensor]
+StepNoise = Union[Sequence[torch.Tensor], Callable[[int], torch.Tensor]]
+
+
+class ModelMeanType(enum.Enum):
+    """What the model predicts (``create_diffusion`` makes these two)."""
+
+    START_X = enum.auto()
+    EPSILON = enum.auto()
+
+
+class ModelVarType(enum.Enum):
+    FIXED_SMALL = enum.auto()
+    FIXED_LARGE = enum.auto()
+    LEARNED_RANGE = enum.auto()
+
+
+class GaussianDiffusion:
+    def __init__(
+        self,
+        betas: np.ndarray,
+        model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
+        model_var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+        rescale_timesteps: bool = True,
+        timestep_map: Optional[np.ndarray] = None,
+        original_num_steps: Optional[int] = None,
+    ):
+        betas = np.asarray(betas, np.float64)
+        if not ((betas > 0).all() and (betas <= 1).all()):
+            raise ValueError("betas must lie in (0, 1]")
+        self.betas = betas
+        self.model_mean_type = model_mean_type
+        self.model_var_type = model_var_type
+        self.rescale_timesteps = rescale_timesteps
+        self.timestep_map = timestep_map
+        self.original_num_steps = original_num_steps
+        self.num_timesteps = int(betas.shape[0])
+
+        alphas = 1.0 - betas
+        ac = np.cumprod(alphas)
+        ac_prev = np.append(1.0, ac[:-1])
+        self.alphas_cumprod = ac
+        with np.errstate(divide="ignore"):  # beta_T == 1 in tiny-T schedules
+            self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / ac)
+            self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / ac - 1)
+        pv = betas * (1.0 - ac_prev) / (1.0 - ac)
+        self.posterior_variance = pv
+        self.posterior_log_variance_clipped = np.log(np.append(pv[1], pv[1:]))
+        self.posterior_mean_coef1 = betas * np.sqrt(ac_prev) / (1.0 - ac)
+        self.posterior_mean_coef2 = (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac)
+        self.fixed_large_variance = np.append(pv[1], betas[1:])
+        self.fixed_large_log_variance = np.log(self.fixed_large_variance)
+        self._device_tables: Dict[Any, Dict[str, torch.Tensor]] = {}
+
+    # ---------------- schedule tables on the device ----------------
+
+    def _table(self, name: str, device) -> torch.Tensor:
+        tables = self._device_tables.setdefault(torch.device(device), {})
+        if name not in tables:
+            arr = np.log(self.betas) if name == "log_betas" else getattr(self, name)
+            dtype = torch.int64 if name == "timestep_map" else torch.float32
+            tables[name] = torch.as_tensor(np.asarray(arr)).to(device=device, dtype=dtype)
+        return tables[name]
+
+    def _extract(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
+        out = self._table(name, t.device)[t]
+        return out.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        mean = (self._extract("posterior_mean_coef1", t, x_t.dim()) * x_start
+                + self._extract("posterior_mean_coef2", t, x_t.dim()) * x_t)
+        variance = self._extract("posterior_variance", t, x_t.dim())
+        log_variance = self._extract("posterior_log_variance_clipped", t, x_t.dim())
+        return mean, variance, log_variance
+
+    # ---------------- model wrapping ----------------
+
+    def scale_timesteps(self, t: torch.Tensor) -> torch.Tensor:
+        """Respacing map, then the optional float rescale to [0, 1000)."""
+        if self.timestep_map is not None:
+            t = self._table("timestep_map", t.device)[t]
+        if self.rescale_timesteps:
+            n = self.original_num_steps or self.num_timesteps
+            return t.float() * (1000.0 / n)
+        return t
+
+    def _predict_xstart_from_eps(self, x_t, t, eps):
+        return (self._extract("sqrt_recip_alphas_cumprod", t, x_t.dim()) * x_t
+                - self._extract("sqrt_recipm1_alphas_cumprod", t, x_t.dim()) * eps)
+
+    def p_mean_variance(
+        self,
+        model_fn: ModelFn,
+        x: torch.Tensor,
+        t: torch.Tensor,
+        x_cond=None,
+        clip_denoised: bool = True,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Posterior p(x_{t-1} | x_t) from the model output (gaussian_diffusion.py:232-326)."""
+        model_kwargs = model_kwargs or {}
+        model_output = model_fn(x, self.scale_timesteps(t), x_cond, **model_kwargs)
+
+        if self.model_var_type == ModelVarType.LEARNED_RANGE:
+            model_output, var_values = torch.chunk(model_output, 2, dim=-1)
+            min_log = self._extract("posterior_log_variance_clipped", t, x.dim())
+            max_log = self._extract("log_betas", t, x.dim())
+            frac = (var_values + 1) / 2
+            model_log_variance = frac * max_log + (1 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        else:
+            if self.model_var_type == ModelVarType.FIXED_LARGE:
+                var, logvar = "fixed_large_variance", "fixed_large_log_variance"
+            else:
+                var, logvar = "posterior_variance", "posterior_log_variance_clipped"
+            model_variance = self._extract(var, t, x.dim()) * torch.ones_like(x)
+            model_log_variance = self._extract(logvar, t, x.dim()) * torch.ones_like(x)
+
+        def process_xstart(xs):
+            return xs.clamp(-1, 1) if clip_denoised else xs
+
+        if self.model_mean_type == ModelMeanType.START_X:
+            pred_xstart = process_xstart(model_output)
+        else:
+            pred_xstart = process_xstart(self._predict_xstart_from_eps(x, t, model_output))
+        model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+
+        return {"mean": model_mean, "variance": model_variance,
+                "log_variance": model_log_variance, "pred_xstart": pred_xstart}
+
+    # ---------------- ancestral sampling ----------------
+
+    def p_sample(self, model_fn, x, x_cond, t, noise, clip_denoised=True, model_kwargs=None):
+        """One ancestral step with the given standard-normal ``noise``."""
+        out = self.p_mean_variance(model_fn, x, t, x_cond, clip_denoised, model_kwargs)
+        nonzero = (t != 0).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+        sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
+        return sample, out["pred_xstart"]
+
+    @torch.no_grad()
+    def p_sample_loop(
+        self,
+        model_fn: ModelFn,
+        shape,
+        generator: Optional[torch.Generator] = None,
+        x_cond=None,
+        noise: Optional[torch.Tensor] = None,
+        step_noise: Optional[StepNoise] = None,
+        clip_denoised: bool = True,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+        device="cuda",
+    ) -> torch.Tensor:
+        """Ancestral sampling from t = T-1 down to 0 (gaussian_diffusion.py:390-482).
+
+        ``noise`` is x_T; ``step_noise[i]`` (or ``step_noise(i)``) the noise of
+        the i-th step taken (t = T-1-i). Either one missing is drawn from
+        ``generator`` on ``device``.
+        """
+        def normal():
+            return torch.randn(shape, generator=generator, device=device)
+
+        x = normal() if noise is None else noise.to(device=device, dtype=torch.float32)
+        for i in range(self.num_timesteps):
+            t = torch.full((shape[0],), self.num_timesteps - 1 - i, dtype=torch.int64,
+                           device=device)
+            if step_noise is None:
+                eps = normal()
+            else:
+                eps = step_noise(i) if callable(step_noise) else step_noise[i]
+                eps = eps.to(device=device, dtype=torch.float32)
+            x, _ = self.p_sample(model_fn, x, x_cond, t, eps, clip_denoised, model_kwargs)
+        return x

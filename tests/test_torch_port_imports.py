@@ -1,0 +1,51 @@
+"""The port package and the scripts that drive it on the card
+(chip_smoke.py, scripts/profile_torch_step.py) import neither JAX, flax nor
+the JAX package ``humanliff_tpu``: a GPU machine need not have JAX."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "humanliff_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "humanliff_tpu")
+
+
+def _port_files():
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "profile_torch_step.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(os.path.relpath(f, REPO) for f in files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_files())
+def test_no_forbidden_import_statement(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
+               for p in _port_files() if p.startswith("humanliff_tpu_torch")]
+    code = (
+        "import sys\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        + "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
