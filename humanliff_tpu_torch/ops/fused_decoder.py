@@ -2,8 +2,8 @@
 
 Port of ``humanliff_tpu/ops/pallas/decoder.py::fused_decoder``. The kernel is
 ``csrc/fused_decoder.cu`` (see the note there for its design); this module
-checks arguments, packs the weights, launches it on the current stream and
-counts the launch. :func:`decoder_plain` is the same function in plain
+checks arguments, packs the weights into the kernel's layout (cached per
+weight set), launches it on the current stream and counts the launch. :func:`decoder_plain` is the same function in plain
 PyTorch: the wrapper takes it only for tensors that lie on the CPU (the tests)
 and never as a fallback for a CUDA tensor, which launches the kernel or raises.
 
@@ -17,6 +17,7 @@ as the JAX custom VJP does (there is no backward kernel).
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -26,7 +27,6 @@ from humanliff_tpu_torch import kernels
 from humanliff_tpu_torch.ops.posenc import positional_encoding
 
 NAME = "fused_decoder"
-N_PARAMS = 66884
 D_IN = 27
 _SHAPES = (
     (128, 27), (128,), (128, 128), (128,), (128, 155), (128,),
@@ -65,11 +65,98 @@ def decoder_plain(
     return F.linear(h2, wr, br), alpha
 
 
+# The kernel's packed weight layout (csrc/fused_decoder.cu, the note above its
+# offsets): each matrix (in, out), zero-padded to whole 8 x 8 tiles, in mma
+# B-fragment order; the order of the parts puts what the density-only variant
+# reads first and Wf last.
+LAYOUT = 2  # hl_fused_decoder_layout() of a library built for this packing
+N_PACKED = 69712
+# (name, padded K, padded N) in packed order, with "b" for the biases.
+_PARTS = (("w0", 32, 128), ("w1", 128, 128), ("w2", 160, 128), ("wa", 128, 8), ("b", 0, 0),
+          ("wv", 160, 64), ("wr", 64, 8), ("wf", 128, 128))
+_BIAS_PAD = (("b0", 128), ("b1", 128), ("b2", 128), ("ba", 8), ("bf", 128), ("bv", 64),
+             ("br", 8))
+_NAMES = ("w0", "b0", "w1", "b1", "w2", "b2", "wa", "ba", "wf", "bf", "wv", "bv", "wr", "br")
+
+
+def _padded_rows(name: str) -> torch.Tensor:
+    """Padded K row of each input row of a matrix: W2's input [x (27), h (128)]
+    puts h at row 32, after x padded to 32; every other matrix keeps its order."""
+    rows = torch.arange(_SHAPES[_NAMES.index(name)][1])
+    return torch.where(rows < D_IN, rows, rows + 5) if name == "w2" else rows
+
+
+def _to_fragments(W: torch.Tensor) -> torch.Tensor:
+    """(K, N) padded -> flat B fragments: [kt, j, lane = 4 g + t, r] holds
+    W[8 kt + 2 t + r, 8 j + g], two n-tiles to a lane's 4 floats where N > 8."""
+    K, N = W.shape
+    KT, NT = K // 8, N // 8
+    f = W.reshape(KT, 4, 2, NT, 8).permute(0, 3, 4, 1, 2)  # (kt, j, g, t, r)
+    if NT > 1:
+        f = f.reshape(KT, NT // 2, 2, 32, 2).permute(0, 1, 3, 2, 4)  # (kt, jp, lane, j%2, r)
+    return f.reshape(-1)
+
+
+def _from_fragments(flat: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The inverse of :func:`_to_fragments`: the padded (K, N) matrix."""
+    KT, NT = K // 8, N // 8
+    f = flat.reshape(KT, NT // 2, 32, 2, 2).permute(0, 1, 3, 2, 4) if NT > 1 else flat
+    return f.reshape(KT, NT, 8, 4, 2).permute(0, 3, 4, 1, 2).reshape(K, N)
+
+
 def pack_weights(weights: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The kernel's flat fp32 weight buffer: each matrix as (in, out), then its bias."""
-    parts = [w.detach().float().t().reshape(-1) if w.dim() == 2 else w.detach().float()
-             for w in weights]
+    """The kernel's flat fp32 buffer (layout ``LAYOUT``) from the 14 weights."""
+    named = dict(zip(_NAMES, (w.detach().float() for w in weights)))
+    parts = []
+    for name, K, N in _PARTS:
+        if name == "b":
+            for b, n in _BIAS_PAD:
+                parts.append(F.pad(named[b], (0, n - named[b].shape[0])))
+            continue
+        w = named[name]  # (out, in)
+        W = w.new_zeros(K, N)
+        W[_padded_rows(name), :w.shape[0]] = w.t()
+        parts.append(_to_fragments(W))
     return torch.cat(parts).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The 14 weights back from :func:`pack_weights`' buffer (its inverse)."""
+    named, at = {}, 0
+    for name, K, N in _PARTS:
+        if name == "b":
+            for b, n in _BIAS_PAD:
+                named[b] = packed[at:at + _SHAPES[_NAMES.index(b)][0]]
+                at += n
+            continue
+        W = _from_fragments(packed[at:at + K * N], K, N)
+        out = _SHAPES[_NAMES.index(name)][0]
+        named[name] = W[_padded_rows(name), :out].t()
+        at += K * N
+    return tuple(named[n].contiguous() for n in _NAMES)
+
+
+# Packed buffers of the last few weight sets, keyed on each tensor's storage
+# address and version counter, so an in-place update (an optimizer step, a
+# copy_ under no_grad) repacks. An entry holds its tensors, so no key can name
+# memory that was freed and handed to other weights. Writes through ``.data``
+# bypass the version counter and are not seen.
+_PACKED: "OrderedDict[tuple, Tuple[tuple, torch.Tensor]]" = OrderedDict()
+_PACKED_MAX = 4
+
+
+def packed_weights(weights: Sequence[torch.Tensor]) -> torch.Tensor:
+    """:func:`pack_weights`, cached per weight set."""
+    key = tuple((w.data_ptr(), w._version, w.device) for w in weights)
+    hit = _PACKED.get(key)
+    if hit is not None:
+        _PACKED.move_to_end(key)
+        return hit[1]
+    packed = pack_weights(weights)
+    _PACKED[key] = (tuple(weights), packed)
+    while len(_PACKED) > _PACKED_MAX:
+        _PACKED.popitem(last=False)
+    return packed
 
 
 def _check(weights, feats, dirs) -> None:
@@ -95,7 +182,7 @@ def _launch(packed: torch.Tensor, feats: torch.Tensor, dirs: Optional[torch.Tens
     """One kernel launch on the current stream; outputs allocated here."""
     if not (feats.is_contiguous() and (dirs is None or dirs.is_contiguous())):
         raise ValueError("fused_decoder needs contiguous feats and dirs")
-    if packed.numel() != N_PARAMS or packed.dtype != torch.float32 or not packed.is_contiguous():
+    if packed.numel() != N_PACKED or packed.dtype != torch.float32 or not packed.is_contiguous():
         raise ValueError("packed decoder weights must be a contiguous fp32 buffer")
     M = feats.shape[0]
     alpha = torch.empty((M, 1), dtype=torch.float32, device=feats.device)
@@ -129,10 +216,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.hl_fused_decoder.restype = ctypes.c_int
-        lib.hl_fused_decoder_n_params.argtypes = []
-        lib.hl_fused_decoder_n_params.restype = ctypes.c_int
-        if lib.hl_fused_decoder_n_params() != N_PARAMS:
-            raise RuntimeError("fused_decoder library packs another weight layout")
+        lib.hl_fused_decoder_layout.argtypes = []
+        lib.hl_fused_decoder_layout.restype = ctypes.c_int
+        if lib.hl_fused_decoder_layout() != LAYOUT:
+            raise RuntimeError("fused_decoder library reads another packed weight layout")
         _LIB = lib
     return _LIB
 
@@ -142,7 +229,7 @@ def _forward(weights, feats, dirs):
         return decoder_plain(weights, feats, dirs)
     if feats.device.type != "cuda":
         raise RuntimeError(f"fused_decoder runs on CUDA or CPU tensors, not {feats.device}")
-    return _launch(pack_weights(weights), feats, dirs)
+    return _launch(packed_weights(weights), feats, dirs)
 
 
 class _FusedDecoderFn(torch.autograd.Function):

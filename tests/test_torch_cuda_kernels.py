@@ -1,20 +1,30 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: each test skips where torch sees no GPU (as on the CPU test
-machine). On the card: ``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
+machine). On the card: ``python -m pytest --noconftest -m cuda
+tests/test_torch_cuda_kernels.py``. M covers one point, the kernel's 128-point
+tile -1, +0 and +1 (and 64, half a tile), a ragged M, and 33,869 points: more tiles
+than a persistent grid of 132 blocks takes in one pass.
 Tolerances as in chip_smoke.py: fp32 inputs 1e-4 + 1e-5 max|ref| (fp32 sums in
 another order); bf16 inputs 1e-2 + 1e-5 max|ref| (PE4 values rounded to bf16
 may land one bf16 ulp apart where sin/cos differ in the last bit).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from torch_port_util import randomize_tree  # noqa: F401  (sets torch threads)
 from humanliff_tpu_torch import kernels
+from humanliff_tpu_torch.compat.from_jax import decoder_state_dict
 from humanliff_tpu_torch.nerf.decoder import NeRFDecoder
 from humanliff_tpu_torch.ops.fused_decoder import decoder_plain, fused_decoder
+from humanliff_tpu_torch.ops.triplane import sample_triplane_features
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -26,7 +36,7 @@ def device():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("M", [1, 63, 64, 65, 4099])
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 4099, 127, 128, 129, 33869])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("full", [True, False])
 def test_fused_decoder_matches_plain(device, M, dtype, full):
@@ -44,6 +54,38 @@ def test_fused_decoder_matches_plain(device, M, dtype, full):
     for out, ref in pairs:
         tol = (1e-4 if dtype == "float32" else 1e-2) + 1e-5 * float(ref.abs().max())
         assert float((out - ref).abs().max()) <= tol
+
+
+def _tol(dtype, ref):
+    return (1e-4 if dtype == "float32" else 1e-2) + 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("full", [True, False])
+def test_fused_decoder_fitted(device, dtype, full):
+    """The fitted Stage-1 decoder on features sampled from fitted planes, where
+    outputs reach the hundreds (as in chip_smoke.py's kernel phase)."""
+    dec = NeRFDecoder()
+    with np.load(os.path.join(REPO, "runs", "quality", "train", "decoder_060000.npz")) as f:
+        dec.load_state_dict(decoder_state_dict(dict(f)))
+    w = tuple(t.detach().to(device) for t in dec.weights())
+    with np.load(os.path.join(REPO, "runs", "quality", "stage2", "planes",
+                              "campaign0000_060000.npz")) as f:
+        planes = torch.from_numpy(np.ascontiguousarray(f["tri_planes"][3])).to(device)
+    rng = np.random.default_rng(5)
+    M = 50_000
+    box = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)
+    coords = torch.from_numpy(rng.uniform(box[0], box[1], (M, 3)).astype(np.float32))
+    feats = sample_triplane_features(planes, coords.to(device), torch.from_numpy(box))
+    feats = feats.to(getattr(torch, dtype)).contiguous()
+    dirs = F.normalize(torch.from_numpy(rng.standard_normal((M, 3)).astype(np.float32)), dim=-1)
+    dirs = dirs.to(device, getattr(torch, dtype)).contiguous() if full else None
+    rgb, alpha = fused_decoder(w, feats, dirs)
+    ref_rgb, ref_alpha = decoder_plain(w, feats, dirs)
+    assert float(ref_alpha.abs().max()) > 100.0
+    for out, ref in [(alpha, ref_alpha)] + ([(rgb, ref_rgb)] if full else []):
+        assert bool(torch.isfinite(out).all())
+        assert float((out - ref).abs().max()) <= _tol(dtype, ref)
 
 
 def test_fused_decoder_gradients(device):
