@@ -55,14 +55,21 @@ BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
-# tensor cores in TF32 and bf16, special-function results per SM per clock.
+# tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
+# SM clock they imply, 495 TFLOP/s / (132 SMs x 2,048 TF32 flop per clock) =
+# 1.83 GHz; the special-function units, 16 results per SM and clock, are
+# counted at that clock too.
 PEAK_BYTES_S = 3.35e12
 PEAK_TF32_S = 495e12
-PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": 495e12}  # one pass at the input type
-SFU_PER_SM_CLK = 16
+PEAK_FLOPS_S = {"bfloat16": 989e12, "float32": PEAK_TF32_S}  # one pass at the input type
+PEAK_SFU_S = 132 * 16 * PEAK_TF32_S / (132 * 2048)
 # Multiply-adds per point of the decoder (weights 66,884 = these + biases).
 MACS_DENSITY = 27 * 128 + 128 * 128 + 155 * 128 + 128
 MACS_FULL = MACS_DENSITY + 128 * 128 + 155 * 64 + 64 * 3
+# Of those, the ones whose activation is exact in TF32 for bf16 inputs (the
+# x rows of W0 and W2, the PE4 rows of Wv): the kernel skips their lo.hi.
+MACS_EXACT_DENSITY = 2 * 27 * 128
+MACS_EXACT_FULL = MACS_EXACT_DENSITY + 27 * 64
 # Special-function results per point: an ex2 and a lg2 per softplus (3 x 128
 # trunk, 64 view), and the 24 sin/cos of PE4.
 SFU_DENSITY = 2 * 3 * 128
@@ -120,19 +127,19 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def decoder_bound_ms(M: int, dtype: str, full: bool, sms: int = 132,
-                     sm_clock_hz: float = 1.98e9) -> dict:
+def decoder_bound_ms(M: int, dtype: str, full: bool) -> dict:
     """Least time for the decoder on M points, the largest of three terms:
 
     - bytes: inputs read once, fp32 outputs written once, weights once, over
       HBM bandwidth;
-    - tensor: three TF32 products per multiply-add over the dense TF32 peak.
-      The kernel's tolerance needs them for both input types: in one TF32
-      pass the fitted decoder misses it more than tenfold, in split TF32
+    - tensor: three TF32 products per multiply-add (two where the activation
+      is exact in TF32: bf16 inputs' x and PE4 rows) over the dense TF32
+      peak. The kernel's tolerance needs them for both input types: in one
+      TF32 pass the fitted decoder misses it more than tenfold, in split TF32
       (hi.hi + hi.lo + lo.hi) it meets it (tests/test_torch_decoder_precision.py
       emulates both on points sampled from fitted planes);
-    - special-function: an ex2 and a lg2 per softplus and 24 sin/cos per point
-      over the SMs' 16 results per clock at the maximum SM clock.
+    - special-function: an ex2 and a lg2 per softplus and 24 sin/cos per
+      point over the SMs' 16 results per clock.
 
     Returns ``ms``, ``term`` (the binding one), ``by`` ("bytes" or
     "operations") and ``ms_one_pass``, the earlier basis (one tensor-core
@@ -144,11 +151,11 @@ def decoder_bound_ms(M: int, dtype: str, full: bool, sms: int = 132,
     n_out = 4 if full else 1
     bytes_ = M * (n_in * in_bytes + n_out * 4) + 66884 * 4
     macs = M * (MACS_FULL if full else MACS_DENSITY)
+    exact = M * (MACS_EXACT_FULL if full else MACS_EXACT_DENSITY) if in_bytes == 2 else 0
     terms = {
         "bytes": 1e3 * bytes_ / PEAK_BYTES_S,
-        "tf32 tensor": 1e3 * 3 * 2 * macs / PEAK_TF32_S,
-        "special-function": 1e3 * M * (SFU_FULL if full else SFU_DENSITY)
-        / (sms * SFU_PER_SM_CLK * sm_clock_hz),
+        "tf32 tensor": 1e3 * 2 * (3 * macs - exact) / PEAK_TF32_S,
+        "special-function": 1e3 * M * (SFU_FULL if full else SFU_DENSITY) / PEAK_SFU_S,
     }
     term = max(terms, key=terms.get)
     return {"ms": terms[term], "term": term,
@@ -217,8 +224,7 @@ def phase_build() -> dict:
 
 
 def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
-                 main_fine_points=RENDER_CHUNK * 256, reps=10, sms=132,
-                 sm_clock_hz=1.98e9) -> dict:
+                 main_fine_points=RENDER_CHUNK * 256, reps=10) -> dict:
     """Hold the kernel against decoder_plain and time both."""
     import torch
     import torch.nn.functional as F
@@ -279,7 +285,7 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
             d = dirs if full else None
             k_ms = cuda_ms(lambda: fused_decoder(w, feats, d), reps)
             p_ms = cuda_ms(lambda: decoder_plain(w, feats, d), reps)
-            b = decoder_bound_ms(M, dtype, full, sms, sm_clock_hz)
+            b = decoder_bound_ms(M, dtype, full)
             timings[(M, dtype, full)] = (k_ms, p_ms, b)
             say(f"[kernel] time M={M} {dtype} {'full' if full else 'density'}: "
                 f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, plain/kernel "
@@ -459,9 +465,9 @@ def phase_fitted_planes(device, ray_args) -> dict:
     return stats
 
 
-def nvidia_smi(query: str = "name,power.limit") -> str:
+def nvidia_smi_line() -> str:
     proc = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return proc.stdout.strip().splitlines()[0]
@@ -487,19 +493,16 @@ def main(argv=None) -> int:
     # the kernel's yardstick and the fp32 UNet forward the bf16 one's.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = nvidia_smi()
+    card = nvidia_smi_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    sm_clock_hz = 1e6 * float(nvidia_smi("clocks.max.sm").split()[0])
-    say(f"card: {sms} SMs, max SM clock {sm_clock_hz / 1e6:.0f} MHz")
     sync = torch.cuda.synchronize
     t_start = time.perf_counter()
 
     with Phase("build", sync):
         build = phase_build()
     with Phase("kernel", sync):
-        kern = phase_kernel(device, sms=sms, sm_clock_hz=sm_clock_hz)
+        kern = phase_kernel(device)
 
     # The main path: generation, then the exact decode. Counts start at 0 here.
     kernels.reset_launches()
@@ -531,10 +534,9 @@ def main(argv=None) -> int:
         "bound_ms": kern["bound"]["ms"],
         "bound_by": kern["bound"]["by"],
         "bound_term": kern["bound"]["term"],
-        "bound_ms_one_pass": kern["bound"]["ms_one_pass"],
         "library_ms": None,
     }]}))
-    say(nvidia_smi())
+    say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

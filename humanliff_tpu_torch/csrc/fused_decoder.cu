@@ -24,17 +24,19 @@
 // from zero, as cvt.rna); a weight's hi is v truncated, one operation fewer
 // on the path every weight takes at every use. lo goes to the tensor core as
 // it is: the unit reads the upper 19 bits of a TF32 operand, so lo is
-// truncated there (measured by scripts/probe_mma_tf32.py).
+// truncated there (tests/test_torch_cuda_kernels.py checks this on the card).
 // tests/test_torch_decoder_precision.py emulates this arithmetic. bf16 inputs
 // (and PE4 of bf16 directions) are exact in TF32, so their lo.hi is skipped.
 //
 // What bounds it on an H100: operations, of two kinds. Per point 66,304
-// multiply-adds (39,808 density-only), three TF32 products each: 3.37 ms for
-// a render chunk's 4,194,304-point fine pass at the 495 TFLOP/s dense TF32
+// multiply-adds (39,808 density-only), three TF32 products each (two for the
+// 8,640 whose activation is exact, with bf16 inputs): 3.22 ms for a render
+// chunk's 4,194,304-point bf16 fine pass at the 495 TFLOP/s dense TF32
 // peak. And the special-function units: 448 softplus per point (384
-// density-only), each one ex2 and one lg2, and 24 sin/cos: 0.92 ms at
-// 132 SMs x 16 per clock x 1.98 GHz. The bytes (30 inputs, 4 outputs per
-// point) take 0.1-0.2 ms. So the design keeps the tensor cores fed:
+// density-only), each one ex2 and one lg2, and 24 sin/cos: 1.00 ms at
+// 132 SMs x 16 per clock x 1.83 GHz, the clock that peak implies. The bytes
+// (30 inputs, 4 outputs per point) take 0.1-0.2 ms. So the design keeps the
+// tensor cores fed:
 //   - a warp owns 16 points x all neurons of a layer as mma accumulators
 //     (64 fp32 registers) and the previous layer's output (64 more): the
 //     activations never leave registers. The K rows of every packed weight
@@ -61,9 +63,10 @@
 //     k-tiles spread over four accumulators so the mma chain is not serial;
 //   - softplus runs as max(x, 0) + log(1 + exp(-|x|)) on the special-function
 //     units (__expf, __logf: one ex2 and one lg2 each).
-// What holds it at 3x its bound: mma.sync runs TF32 at 64 % of the 495
-// TFLOP/s peak at most, and with 8 warps an SM cannot hide the loads and
-// splits on each weight's way to the tensor core (PERF.md). The next
+// What holds it at about 3x its bound: mma.sync ran TF32 at 314 TFLOP/s at
+// most on an H100 (63 % of the peak), and with 8 warps an SM cannot hide the
+// loads and splits on each weight's way to the tensor core; 12 warps would
+// hide more, but leave 168 registers a thread and spill (PERF.md). The next
 // step is wgmma, which reads B from shared memory: the weights' hi and lo
 // halves would both be staged, twice the shared memory, so every layer would
 // stream through a ring of K-chunks (TMA and mbarriers); then fusing the
@@ -305,20 +308,6 @@ __device__ __forceinline__ float pe4(int i, float d0, float d1, float d2, const 
   return round_as((i - 3) % 6 < 3 ? __sinf(r) : __cosf(r), tag);
 }
 
-#ifdef HL_DECODER_PHASES
-// Cycles the warps spend in each phase of a tile, summed over launches: built
-// only by scripts/profile_decoder_phases.py (-DHL_DECODER_PHASES).
-__device__ unsigned long long hl_phase_cycles[9];
-#define PHASE(i)                       \
-  {                                    \
-    const long long now = clock64();   \
-    phase_cycles[i] += now - phase_t;  \
-    phase_t = now;                     \
-  }
-#else
-#define PHASE(i)
-#endif
-
 // ---------------------------------------------------------------- kernel
 
 template <typename T, bool FULL>
@@ -338,10 +327,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   stage(s, w, FULL ? OFF_WF : OFF_WV);
   staged_wait();
   __syncthreads();
-#ifdef HL_DECODER_PHASES
-  unsigned long long phase_cycles[9] = {};
-  long long phase_t = clock64();
-#endif
 
   for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const long long r0 = tile * TILE_P + warp * WARP_P + g;  // rows r0 and r0 + 8
@@ -359,13 +344,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         x[kt][2 + r] = v1 && col < 27 ? load_f32(feats + (r0 + 8) * 27 + col) : 0.f;
       }
     }
-    PHASE(0)
 
     float h[NT_H][4], o[NT_H][4];
     init_bias(o, s + OFF_B0, t);
     dense<KT_X, NT_H, IN_EXACT>(o, x, s + OFF_W0, lane);
     softplus_all(o);
-    PHASE(1)
 
     if (FULL) {  // W1 is in the buffer
       staged_wait();
@@ -378,13 +361,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
       stage(s + OFF_W1, w + OFF_WF, SZ_WF);
     }
-    PHASE(2)
 
     init_bias(o, s + OFF_B2, t);
     dense<KT_X, NT_H, IN_EXACT>(o, x, s + OFF_W2, lane);
     dense<KT_H, NT_H, false>(o, h, s + OFF_W2 + KT_X * NT_H * FRAG, lane);
     softplus_all(o);
-    PHASE(3)
 
     float a[4];
     head<KT_H>(a, o, s + OFF_WA, s + OFF_BA, lane);
@@ -392,7 +373,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (v0) alpha[r0] = a[0];
       if (v1) alpha[r0 + 8] = a[2];
     }
-    PHASE(4)
     if (!FULL) continue;
 
     staged_wait();  // Wf is in the buffer
@@ -401,7 +381,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     dense<KT_H, NT_H, false>(h, o, s + OFF_W1, lane);  // feat: no activation
     __syncthreads();  // every warp is done with Wf: bring the next tile's W1
     stage(s + OFF_W1, w + OFF_W1, SZ_W1);
-    PHASE(5)
 
     float pe[KT_PE][4];
     {
@@ -421,13 +400,11 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       }
     }
-    PHASE(6)
     float v[NT_V][4];
     init_bias(v, s + OFF_BV, t);
     dense<KT_H, NT_V, false>(v, h, s + OFF_WV, lane);
     dense<KT_PE, NT_V, IN_EXACT>(v, pe, s + OFF_WV + KT_H * NT_V * FRAG, lane);
     softplus_all(v);
-    PHASE(7)
 
     float c[4];
     head<KT_V>(c, v, s + OFF_WR, s + OFF_BR, lane);
@@ -440,12 +417,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         if (v1) rgb[(r0 + 8) * 3 + col] = c[2 + r];
       }
     }
-    PHASE(8)
   }
-#ifdef HL_DECODER_PHASES
-  if (lane == 0)
-    for (int i = 0; i < 9; ++i) atomicAdd(&hl_phase_cycles[i], phase_cycles[i]);
-#endif
   staged_wait();  // the last tile's W1 copy: no block exits with copies in flight
 }
 
@@ -493,15 +465,5 @@ int hl_fused_decoder(const void* feats, const void* dirs, const void* weights, v
 
 // The packed weight layout this library reads (see the note above the offsets).
 int hl_fused_decoder_layout(void) { return LAYOUT_VERSION; }
-
-#ifdef HL_DECODER_PHASES
-// Copy the 9 phase counters to host memory and zero them.
-int hl_fused_decoder_phases(unsigned long long* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, hl_phase_cycles, sizeof(hl_phase_cycles));
-  if (err != cudaSuccess) return err;
-  const unsigned long long zero[9] = {};
-  return cudaMemcpyToSymbol(hl_phase_cycles, zero, sizeof(zero));
-}
-#endif
 
 }  // extern "C"

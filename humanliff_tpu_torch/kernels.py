@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher. It is compiled
 by ``nvcc`` into ``build/torch_kernels/<name>-<hash>.so`` under the checkout (the
 hash covers the source and the flags, so an edited source rebuilds) and loaded
 with ``ctypes``. Nothing here includes PyTorch's headers, so a build takes
-well under a minute, not many. Building happens on first use, never at import: the CPU tests import
-every module on a machine without ``nvcc``.
+well under a minute, not many. Building happens on first use, never at
+import: the CPU tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Dict, Tuple
+from typing import Dict
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -61,13 +61,11 @@ def sass(path: str) -> str:
     return proc.stdout
 
 
-def build(name: str, extra_flags: Tuple[str, ...] = ()) -> str:
-    """Compile ``csrc/<name>.cu`` if its keyed ``.so`` is missing; return its path.
-    ``extra_flags`` (a ``-D`` for a profiling build) join the key."""
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` if its keyed ``.so`` is missing; return its path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    flags = (*NVCC_FLAGS, *extra_flags)
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     out = os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
     if os.path.exists(out):
         BUILD_LOG.setdefault(name, {"path": out, "seconds": 0.0, "cached": True,
@@ -80,7 +78,7 @@ def build(name: str, extra_flags: Tuple[str, ...] = ()) -> str:
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *flags, "-o", tmp, src],
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:

@@ -120,20 +120,32 @@ def pack_weights(weights: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts).contiguous()
 
 
-def unpack_weights(packed: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The 14 weights back from :func:`pack_weights`' buffer (its inverse)."""
-    named, at = {}, 0
+def padded_parts(packed: torch.Tensor) -> dict:
+    """The padded parts of :func:`pack_weights`' buffer by name: each matrix
+    as its padded (K, N) and each bias with its zero padding."""
+    parts, at = {}, 0
     for name, K, N in _PARTS:
         if name == "b":
             for b, n in _BIAS_PAD:
-                named[b] = packed[at:at + _SHAPES[_NAMES.index(b)][0]]
+                parts[b] = packed[at:at + n]
                 at += n
             continue
-        W = _from_fragments(packed[at:at + K * N], K, N)
-        out = _SHAPES[_NAMES.index(name)][0]
-        named[name] = W[_padded_rows(name), :out].t()
+        parts[name] = _from_fragments(packed[at:at + K * N], K, N)
         at += K * N
-    return tuple(named[n].contiguous() for n in _NAMES)
+    if at != packed.numel():
+        raise ValueError(f"packed decoder weights hold {packed.numel()} floats, not {at}")
+    return parts
+
+
+def unpack_weights(packed: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The 14 weights back from :func:`pack_weights`' buffer (its inverse)."""
+    parts = padded_parts(packed)
+    out = []
+    for name, shape in zip(_NAMES, _SHAPES):
+        p = parts[name]
+        out.append(p[:shape[0]] if len(shape) == 1
+                   else p[_padded_rows(name), :shape[0]].t().contiguous())
+    return tuple(out)
 
 
 # Packed buffers of the last few weight sets, keyed on each tensor's storage

@@ -7,10 +7,14 @@ tile -1, +0 and +1 (and 64, half a tile), a ragged M, and 33,869 points: more ti
 than a persistent grid of 132 blocks takes in one pass.
 Tolerances as in chip_smoke.py: fp32 inputs 1e-4 + 1e-5 max|ref| (fp32 sums in
 another order); bf16 inputs 1e-2 + 1e-5 max|ref| (PE4 values rounded to bf16
-may land one bf16 ulp apart where sin/cos differ in the last bit).
+may land one bf16 ulp apart where sin/cos differ in the last bit). One more
+case checks the tensor core's reading of a TF32 operand, which the kernel's
+split relies on.
 """
 
+import ctypes
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -108,3 +112,43 @@ def test_fused_decoder_rejects_non_contiguous(device):
     feats = torch.randn(27, 64, device=device).t()
     with pytest.raises(ValueError):
         fused_decoder(dec.weights(), feats, None)
+
+
+# One mma.sync m16n8k8 in TF32: A has ones in column 0, B row 0 holds b, so
+# D[0][0] is b as the tensor core reads it.
+_TF32_OPERAND_CU = r"""
+#include <cuda_runtime.h>
+#include <cstdint>
+__global__ void tf32_operand_kernel(float b, float* out) {
+  const int t = threadIdx.x & 3;
+  const uint32_t one = t == 0 ? __float_as_uint(1.f) : 0u;
+  const uint32_t b0 = t == 0 ? __float_as_uint(b) : 0u;
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(one), "r"(one), "r"(0u), "r"(0u), "r"(b0), "r"(0u));
+  out[threadIdx.x] = d[0];
+}
+extern "C" int tf32_operand(float b, float* out) {
+  tf32_operand_kernel<<<1, 32>>>(b, out);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_tensor_core_truncates_tf32_operands(device, tmp_path):
+    """The kernel passes lo = v - hi to the tensor core as an fp32 bit pattern
+    and relies on the unit reading only its upper 19 bits (truncating), as
+    tests/test_torch_decoder_precision.py emulates: 1 + 3 2^-12 reads as 1,
+    where rounding to TF32 would give 1 + 2^-10."""
+    src, lib_path = tmp_path / "tf32_operand.cu", tmp_path / "tf32_operand.so"
+    src.write_text(_TF32_OPERAND_CU)
+    subprocess.run([kernels._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(lib_path), str(src)], check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.tf32_operand.argtypes = [ctypes.c_float, ctypes.c_void_p]
+    out = torch.zeros(32, device=device)
+    assert lib.tf32_operand(1.0 + 3.0 / 4096, out.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert float(out[0]) == 1.0

@@ -1,7 +1,6 @@
 """The port package and the scripts that drive it on the card
-(chip_smoke.py, scripts/profile_torch_step.py, scripts/probe_mma_tf32.py,
-scripts/profile_decoder_phases.py) import neither JAX, flax nor the JAX
-package ``humanliff_tpu``: a GPU machine need not have JAX."""
+(chip_smoke.py, scripts/profile_torch_step.py) import neither JAX, flax nor
+the JAX package ``humanliff_tpu``: a GPU machine need not have JAX."""
 
 import ast
 import os
@@ -17,8 +16,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "humanliff_tpu")
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    files += [os.path.join(REPO, "scripts", n) for n in
-              ("profile_torch_step.py", "probe_mma_tf32.py", "profile_decoder_phases.py")]
+    files.append(os.path.join(REPO, "scripts", "profile_torch_step.py"))
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(os.path.relpath(f, REPO) for f in files)
