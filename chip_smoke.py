@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``humanliff_tpu_torch``) once on one NVIDIA H100.
 
-    python3 chip_smoke.py [--steps 250]
+    python3 chip_smoke.py [--steps 250] [--cli_steps ddim50]
 
 The main path is flagship inference, what ``bench.py`` times for the JAX
 package: four chained layers of the ControlNet UNet at full width
 (27 x 256 x 256, 192 channels, 3 res blocks, attention at 32/16/8, y = k,
 ``timestep_respacing="250"`` DDPM at B = 1, seeded random weights, bf16
-autocast, channels_last), then the exact 512^2 decode of the last layer
-(``planes_image_to_triplane`` -> ``render_image_masked``, 128 + 128 samples,
-orbit camera 0) with the fitted Stage-1 decoder of ``runs/quality/train``.
+autocast, channels_last), then the 512^2 decode of the last layer
+(``planes_image_to_triplane``, 128 + 128 samples, orbit camera 0) with the
+fitted Stage-1 decoder of ``runs/quality/train``: the exact tier
+(``render_image_masked``) and the default fast tier (``build_density_grid`` +
+``render_image_fast``), the marching-cubes mesh, and the sampling CLI
+(``humanliff_tpu_torch.cli.diff_sample``) as a user calls it.
 
 Phases, each printed with its seconds and failed past its budget:
 
@@ -18,19 +21,27 @@ Phases, each printed with its seconds and failed past its budget:
               of each kernel variant from cuobjdump -sass                  120 s
     kernel    fused decoder vs its plain version (fitted weights, features
               sampled from fitted planes), M = 2^20 and 1,000,003, fp32 and
-              bf16 inputs, full and density-only, and the main path's two
-              shapes (a render chunk's passes); CUDA-event times beside the
-              bound (decoder_bound_ms) and its one-pass basis              120 s
+              bf16 inputs, full and density-only, and every shape the main
+              path launches (a render chunk's passes, the grid build, a mesh
+              tile); CUDA-event times beside the bound (decoder_bound_ms)  120 s
     generate  the 4-layer chain; one bf16 UNet forward is first held
               against the fp32 forward                                    420 s
-    decode    the 512^2 exact render through the kernel (launch count
-              checked), a CPU re-render of a ray subset with the plain
-              decoder, and a decode of fitted campaign planes              180 s
+    decode    view 0 of the last generated layer and of the fitted
+              campaign planes, exact and fast tier: launch counts checked,
+              a CPU re-render of a ray subset with the plain decoder for
+              each tier, fast vs exact on the fitted planes                180 s
+    mesh      extract_mesh at 512^3 on the fitted planes                  120 s
+    cli       the CLI's --sample_npz chain from generated layer 2 with
+              DDIM, --decode (40 views, fast tier, 128^3 mesh) and
+              --report_fidelity, from the seeded UNet saved as an npz      360 s
 
-The last three lines are a ``{"kernels": [...]}`` record, the card's name and
-power limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed
-check or blown budget exits non-zero before the result. Without CUDA, or run
-outside a checkout of the repo, it exits non-zero and prints no result.
+Launch counts are set to 0 just before each path (the 4-layer generation and
+exact decode, each grid build, each fast view, the fitted exact view, the
+mesh, the CLI) and read just after it. The last three lines are a
+``{"kernels": [...]}`` record, the card's name and power limit from
+nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
+budget exits non-zero before the result. Without CUDA, or run outside a
+checkout of the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -40,8 +51,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,8 +64,20 @@ DECODER_NPZ = os.path.join(REPO, "runs", "quality", "train", "decoder_060000.npz
 PLANES_NPZ = os.path.join(REPO, "runs", "quality", "stage2", "planes",
                           "campaign0000_060000.npz")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
-BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180}
+BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
+            "cli": 360}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
+GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
+GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
+MESH_RESOLUTION = 512  # the CLI's --mesh_resolution default
+MESH_CHUNK = 1 << 22  # points per decoder call of eval_density_grid
+EARLY_TERM_EPS = 1e-2  # the CLI's --early_term_eps default
+# The fast tier approximates the exact one. On the fitted campaign planes,
+# view 0 at 512^2 in BOUNDS, the JAX package's own fast tier is 28.0526 dB
+# (rgb PSNR over the in-box rays) from its exact tier
+# (scripts/fast_tier_reference.py, on the CPU); the card's fast tier must come
+# as close, less 0.5 dB for the card's bf16 and TF32 arithmetic.
+FITTED_FAST_VS_EXACT_DB = 28.0526 - 0.5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
 # tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
@@ -224,8 +249,11 @@ def phase_build() -> dict:
 
 
 def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
-                 main_fine_points=RENDER_CHUNK * 256, reps=10) -> dict:
-    """Hold the kernel against decoder_plain and time both."""
+                 main_fine_points=RENDER_CHUNK * 256,
+                 grid_points=(GRID_RESOLUTION + 1) ** 3, mesh_points=MESH_CHUNK,
+                 reps=10) -> dict:
+    """Hold the kernel against decoder_plain and time both, at the sizes given
+    and at every shape the main path launches."""
     import torch
     import torch.nn.functional as F
 
@@ -245,10 +273,14 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
         dirs = F.normalize(torch.randn(M, 3, generator=gen, device=device), dim=-1)
         return feats, dirs.to(dtype).contiguous()
 
-    # The main path's shapes: a render chunk's fine pass (bf16, full) and
-    # coarse pass (bf16, density-only).
+    # The main path's shapes: a render chunk's fine pass (bf16, full; the fast
+    # tier's fine tiles too) and the exact tier's coarse pass (bf16,
+    # density-only); the density grid's build (bf16, density-only) and a mesh
+    # tile (fp32 features, density-only).
     main_shapes = [(main_fine_points, "bfloat16", True),
-                   (main_fine_points // 2, "bfloat16", False)]
+                   (main_fine_points // 2, "bfloat16", False),
+                   (grid_points, "bfloat16", False),
+                   (mesh_points, "float32", False)]
     checks = [(M, dt, full) for M in sizes for dt in ("float32", "bfloat16")
               for full in (True, False)] + main_shapes
     max_err = 0.0
@@ -294,7 +326,11 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
                 f"kernel/bound {k_ms / b['ms_one_pass']:.1f}x")
             del feats, dirs
     k_ms, p_ms, b = timings[(main_fine_points, "bfloat16", True)]
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound": b}
+    shapes = [{"M": M, "dtype": dt, "variant": "full" if full else "density",
+               "ms": timings[(M, dt, full)][0], "plain_ms": timings[(M, dt, full)][1],
+               "bound_ms": timings[(M, dt, full)][2]["ms"]} for M, dt, full in main_shapes]
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound": b,
+            "main_shapes": shapes}
 
 
 def seed_weights(model, seed: int) -> None:
@@ -385,6 +421,41 @@ def acc_stats(acc, mask) -> dict:
             "frac_saturated": float(((a < 0.1) | (a > 0.9)).mean())}
 
 
+def psnr_db(a, b) -> float:
+    mse = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def expect_launches(device, got: int, expected: int, what: str) -> None:
+    """Print a path's fused_decoder launches; on the card they must be the
+    expected count (CPU tensors take the plain version and launch nothing)."""
+    say(f"[launches] {what}: {got} (expected {expected})")
+    if device.type == "cuda":
+        check(got == expected and got > 0,
+              f"{what} launched fused_decoder {got} times, expected {expected}")
+
+
+def cpu_decoder(dec):
+    from humanliff_tpu_torch.nerf.decoder import NeRFDecoder
+
+    dec_cpu = NeRFDecoder()
+    dec_cpu.load_state_dict({k: v.cpu() for k, v in dec.state_dict().items()})
+    return dec_cpu
+
+
+def check_rays(mask, n_check_rays: int) -> np.ndarray:
+    """An even subset of the in-box rays for the CPU re-renders."""
+    n_rays = int(mask.sum())
+    return np.flatnonzero(mask)[:: max(1, n_rays // n_check_rays)][:n_check_rays]
+
+
 def phase_decode(device, last_layer, image_size=512, n_samples=128,
                  n_check_rays=256) -> dict:
     import torch
@@ -409,60 +480,261 @@ def phase_decode(device, last_layer, image_size=512, n_samples=128,
 
     t0 = time.perf_counter()
     out = render_image_masked(dec, planes, ro, rd, near, far, mask, BOUNDS, cfg)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    sync(device)
     render_s = time.perf_counter() - t0
     launches = kernels.LAUNCHES["fused_decoder"]
     n_rays = int(mask.sum())
     acc = out["acc"].float().cpu().numpy()
     rgb = out["rgb"].float().cpu().numpy()
     stats = acc_stats(acc, mask)
-    say(f"[decode] {S}^2 view, {n_rays} rays in the box, {2 * n_samples} samples/ray: "
-        f"{render_s:.3f} s; acc {json.dumps(stats)}")
+    say(f"[decode] exact tier, generated layer: {S}^2 view, {n_rays} rays in the box, "
+        f"{2 * n_samples} samples/ray: {render_s:.3f} s; acc {json.dumps(stats)}")
     check(np.isfinite(rgb).all() and np.isfinite(acc).all(), "non-finite render")
     check(acc.min() >= 0.0 and acc.max() <= 1.0 + 1e-4, "acc leaves [0, 1]")
 
     # The same rays on the CPU through render_rays with the plain decoder.
-    from humanliff_tpu_torch.nerf.decoder import NeRFDecoder
-
-    idx = np.flatnonzero(mask)[:: max(1, n_rays // n_check_rays)][:n_check_rays]
-    dec_cpu = NeRFDecoder()
-    dec_cpu.load_state_dict({k: v.cpu() for k, v in dec.state_dict().items()})
+    idx = check_rays(mask, n_check_rays)
     with torch.no_grad():
-        ref = render_rays(dec_cpu, planes.cpu(), *(torch.from_numpy(a[idx]) for a in
-                                                    (ro, rd, near, far)),
+        ref = render_rays(cpu_decoder(dec), planes.cpu(),
+                          *(torch.from_numpy(a[idx]) for a in (ro, rd, near, far)),
                           torch.from_numpy(BOUNDS), cfg)
-    psnrs = {}
-    for k in ("rgb", "acc"):
-        mse = float(np.mean((out[k].float().cpu().numpy()[idx] - ref[k].numpy()) ** 2))
-        psnrs[k] = float("inf") if mse == 0 else 10 * math.log10(1.0 / mse)
+    psnrs = {k: psnr_db(out[k].float().cpu().numpy()[idx], ref[k].numpy())
+             for k in ("rgb", "acc")}
     say(f"[decode] {len(idx)} rays vs CPU plain render: PSNR rgb {psnrs['rgb']:.2f} dB, "
         f"acc {psnrs['acc']:.2f} dB (bar 45 dB)")
     check(min(psnrs.values()) >= 45.0, f"render disagrees with the CPU plain path: {psnrs}")
-    return {"render_s": render_s, "launches": launches, "n_rays": n_rays,
-            "stats": stats, "psnr": psnrs, "ray_args": (ro, rd, near, far, mask, cfg)}
+    return {"render_s": render_s, "launches": launches, "n_rays": n_rays, "rgb": rgb,
+            "stats": stats, "psnr": psnrs, "planes": planes,
+            "ray_args": (ro, rd, near, far, mask, cfg)}
+
+
+def phase_fast(device, planes, ray_args, label: str, exact_rgb=None, exact_bar=None,
+               grid_resolution=GRID_RESOLUTION, n_check_rays=256) -> dict:
+    """The fast tier on one view: the grid build and ``render_image_fast``
+    timed as bench.py times ``render_s`` (a warm-up call, then the grid build
+    and the render, host clock after a synchronize), each path's launches
+    checked (the grid's chunks, then one per 16,384 kept rays), the share of
+    terminated rays, a CPU re-render of a ray subset from the card's grid
+    with the plain decoder (bar 45 dB), and the agreement with the exact
+    tier over the in-box rays (bar ``exact_bar`` where given)."""
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.nerf.fastpath import (
+        DensityGrid,
+        build_density_grid,
+        coarse_from_grid,
+        render_image_fast,
+    )
+
+    ro, rd, near, far, mask, cfg = ray_args
+    dec = load_fitted_decoder(device)
+
+    def grid_build():
+        return build_density_grid(dec, planes, BOUNDS, resolution=grid_resolution,
+                                  build_chunk=GRID_CHUNK)
+
+    def render(grid):
+        return render_image_fast(dec, planes, grid, ro, rd, near, far, mask, BOUNDS, cfg,
+                                 chunk=RENDER_CHUNK, early_term_eps=EARLY_TERM_EPS)
+
+    render(grid_build())  # warm-up, as bench.py
+    sync(device)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    grid = grid_build()
+    sync(device)
+    grid_s = time.perf_counter() - t0
+    grid_launches = kernels.LAUNCHES["fused_decoder"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = render(grid)
+    sync(device)
+    fast_s = time.perf_counter() - t0
+    fast_launches = kernels.LAUNCHES["fused_decoder"]
+
+    # The kept rays, from the same grid and tiles as the render (no decoder call).
+    n_rays = int(mask.sum())
+    rays = [torch.from_numpy(a[mask]).to(device) for a in (ro, rd, near, far)]
+    box = torch.from_numpy(BOUNDS).to(device)
+    kept = 0
+    for s in range(0, n_rays, 1 << 18):  # render_image_fast's coarse_chunk
+        _, acc_est = coarse_from_grid(grid, *(r[s:s + (1 << 18)] for r in rays), box, cfg)
+        kept += int((acc_est > EARLY_TERM_EPS).sum())
+    terminated = 1.0 - kept / n_rays
+    R = grid_resolution
+    expect_launches(device, grid_launches, math.ceil((R + 1) ** 3 / GRID_CHUNK),
+                    f"grid build ({label}, {(R + 1) ** 3} points)")
+    expect_launches(device, fast_launches, math.ceil(kept / RENDER_CHUNK),
+                    f"fast view ({label}, {kept} of {n_rays} rays kept)")
+    rgb = out["rgb"].cpu().numpy()
+    acc = out["acc"].cpu().numpy()
+    check(np.isfinite(rgb).all() and np.isfinite(acc).all(), f"non-finite fast render ({label})")
+    check(acc.min() >= 0.0 and acc.max() <= 1.0 + 1e-4, f"fast acc leaves [0, 1] ({label})")
+    say(f"[decode] fast tier, {label}: grid build {grid_s:.3f} s + render {fast_s:.3f} s = "
+        f"{grid_s + fast_s:.3f} s (render_s as bench.py); terminated rays "
+        f"{n_rays - kept} of {n_rays} ({terminated:.4f}); acc {json.dumps(acc_stats(acc, mask))}")
+
+    # A ray subset on the CPU: the card's grid, the plain decoder.
+    idx = check_rays(mask, n_check_rays)
+    cpu_grid = DensityGrid(table=grid.table.cpu(), resolution=R)
+    ref = render_image_fast(cpu_decoder(dec), planes.cpu(), cpu_grid, ro[idx], rd[idx],
+                            near[idx], far[idx], np.ones(len(idx), bool), BOUNDS, cfg,
+                            early_term_eps=EARLY_TERM_EPS)
+    psnrs = {k: psnr_db(out[k].cpu().numpy()[idx], ref[k].numpy()) for k in ("rgb", "acc")}
+    say(f"[decode] fast tier, {label}: {len(idx)} rays vs CPU plain render: PSNR rgb "
+        f"{psnrs['rgb']:.2f} dB, acc {psnrs['acc']:.2f} dB (bar 45 dB)")
+    check(min(psnrs.values()) >= 45.0,
+          f"fast render ({label}) disagrees with the CPU plain path: {psnrs}")
+    vs_exact = None
+    if exact_rgb is not None:
+        vs_exact = psnr_db(rgb[mask], exact_rgb[mask])
+        bar = f"bar {exact_bar} dB" if exact_bar is not None else "no bar"
+        say(f"[decode] fast vs exact tier, {label}: rgb PSNR {vs_exact:.2f} dB over "
+            f"{n_rays} in-box rays ({bar})")
+        check(exact_bar is None or vs_exact >= exact_bar,
+              f"fast tier ({label}) is {vs_exact:.2f} dB from the exact tier")
+    return {"grid_s": grid_s, "fast_s": fast_s, "render_s": grid_s + fast_s,
+            "grid_launches": grid_launches, "fast_launches": fast_launches, "kept": kept,
+            "n_rays": n_rays, "terminated": terminated, "psnr_cpu": psnrs,
+            "psnr_exact": vs_exact}
 
 
 def phase_fitted_planes(device, ray_args) -> dict:
-    """Decode layer 3 of the fitted campaign planes with the same camera: a
-    real subject gives a silhouette (mostly saturated acc), not noise."""
+    """Decode layer 3 of the fitted campaign planes with the same camera by
+    the exact tier: a real subject gives a silhouette (mostly saturated acc),
+    not noise."""
     import torch
 
+    from humanliff_tpu_torch import kernels
     from humanliff_tpu_torch.nerf.renderer import render_image_masked
 
     ro, rd, near, far, mask, cfg = ray_args
     dec = load_fitted_decoder(device)
     planes = load_fitted_planes(3).to(device=device, dtype=torch.bfloat16)
+    kernels.reset_launches()
     t0 = time.perf_counter()
     out = render_image_masked(dec, planes, ro, rd, near, far, mask, BOUNDS, cfg)
+    sync(device)
+    render_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["fused_decoder"]
+    expect_launches(device, launches, 2 * math.ceil(int(mask.sum()) / RENDER_CHUNK),
+                    "exact view (fitted)")
     acc = out["acc"].float().cpu().numpy()
     stats = acc_stats(acc, mask)
-    say(f"[decode] fitted campaign0000 layer 3: {time.perf_counter() - t0:.3f} s; "
+    say(f"[decode] exact tier, fitted campaign0000 layer 3: {render_s:.3f} s; "
         f"acc {json.dumps(stats)}")
     check(np.isfinite(acc).all(), "non-finite render of the fitted planes")
     check(0.05 <= stats["frac_gt_0.5"] <= 0.95 and stats["frac_saturated"] >= 0.5,
           f"fitted planes give no silhouette: {stats}")
-    return stats
+    return {"stats": stats, "render_s": render_s, "launches": launches, "planes": planes,
+            "rgb": out["rgb"].cpu().numpy()}
+
+
+def phase_mesh(device, resolution=MESH_RESOLUTION) -> dict:
+    """``extract_mesh`` of the fitted campaign planes (layer 3), as the CLI
+    calls it: the density grid on the card, smoothing and marching cubes on
+    the host."""
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.nerf.geometry import eval_density_grid, extract_mesh
+
+    dec = load_fitted_decoder(device)
+    planes = load_fitted_planes(3).to(device=device, dtype=torch.bfloat16)
+    t0 = time.perf_counter()  # the density grid alone, first (not a path's count)
+    eval_density_grid(dec, planes, BOUNDS, resolution=resolution, chunk=MESH_CHUNK)
+    grid_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    verts, tris = extract_mesh(dec, planes, BOUNDS, resolution=resolution)
+    mesh_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["fused_decoder"]
+    expect_launches(device, launches, math.ceil(resolution ** 3 / MESH_CHUNK),
+                    f"mesh (fitted, {resolution}^3)")
+    say(f"[mesh] fitted campaign0000 layer 3 at {resolution}^3: {len(verts)} verts, "
+        f"{len(tris)} tris in {mesh_s:.3f} s (the density grid alone, evaluated and "
+        f"downloaded: {grid_s:.3f} s)")
+    check(len(tris) > 0 and np.isfinite(verts).all(), "empty or non-finite mesh")
+    check((verts >= BOUNDS[0] - 1e-4).all() and (verts <= BOUNDS[1] + 1e-4).all(),
+          "mesh vertices leave the box")
+    check(int(tris.min()) >= 0 and int(tris.max()) < len(verts), "triangle indices out of range")
+    return {"mesh_s": mesh_s, "grid_s": grid_s, "launches": launches, "verts": len(verts),
+            "tris": len(tris)}
+
+
+def phase_cli(device, prev_layer, steps="ddim50", model_kwargs=None, cli_flags=()) -> dict:
+    """The sampling CLI as a user calls it, in this process: the seeded UNet
+    saved as an uncompressed npz, then ``--layer_idx 3 --sample_npz <layer 2>
+    --use_ddim true --decode --report_fidelity`` with the fitted decoder.
+    Both live in a temporary directory, removed at the end."""
+    import glob
+
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import diff_sample
+    from humanliff_tpu_torch.mesh.io import read_ply
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.train.checkpoint import load_samples_npz, save_samples_npz
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        with torch.device(device):
+            model, _ = create_model_and_diffusion(**(model_kwargs or {}))
+        seed_weights(model, 0)
+        unet = os.path.join(tmp, "unet.npz")
+        t0 = time.perf_counter()
+        np.savez(unet, **{k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
+        del model
+        say(f"[cli] seeded UNet saved: {os.path.getsize(unet) / 1e9:.3f} GB in "
+            f"{time.perf_counter() - t0:.3f} s")
+        prev = os.path.join(tmp, "samples_person_pant_shirt.npz")
+        save_samples_npz(prev, prev_layer.float().cpu().numpy())
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--model_npz", unet, "--decoder_npz", DECODER_NPZ, "--out_dir", out_dir,
+                "--layer_idx", "3", "--sample_npz", prev, "--num_samples", "1",
+                "--use_ddim", "true", "--timestep_respacing", steps, "--decode",
+                "--report_fidelity", "--device", device.type, *cli_flags]
+        for k, v in (model_kwargs or {}).items():
+            argv += [f"--{k}", str(v)]
+        args = diff_sample.build_parser().parse_args(argv)
+        say(f"[cli] python -m humanliff_tpu_torch.cli.diff_sample {' '.join(argv)}")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        diff_sample.main(argv)
+        cli_s = time.perf_counter() - t0
+        launches = kernels.LAUNCHES["fused_decoder"]
+
+        name = "person_pant_shirt_shoes"
+        pngs = glob.glob(os.path.join(out_dir, f"{name}_s0_v*.png"))
+        check(len(pngs) == args.num_views, f"{len(pngs)} PNGs, not {args.num_views}")
+        samples_path = os.path.join(out_dir, f"samples_{name}.npz")
+        check(os.path.exists(samples_path), "no samples npz")
+        samples = load_samples_npz(samples_path)
+        S, C = args.image_size, args.in_channels
+        check(samples.shape == (1, S, S, C) and np.isfinite(samples).all()
+              and np.abs(samples).max() <= 1.0 + 1e-5, f"bad samples {samples.shape}")
+        fid_path = os.path.join(out_dir, f"fidelity_{name}.json")
+        check(os.path.exists(fid_path), "no fidelity json")
+        with open(fid_path) as f:
+            say(f"[cli] fidelity_{name}.json: {f.read().strip()}")
+        ply = os.path.join(out_dir, f"{name}_s0.ply")
+        check(os.path.exists(ply), "no PLY")
+        verts, tris = read_ply(ply)
+        videos = sorted(f for f in os.listdir(out_dir)
+                        if f.startswith(f"{name}_s0.") and f.endswith((".mp4", ".avi")))
+        say(f"[cli] {cli_s:.3f} s; wrote {len(pngs)} PNGs, {os.path.basename(ply)} "
+            f"({len(verts)} verts, {len(tris)} tris), samples_{name}.npz, "
+            f"fidelity_{name}.json; video: {', '.join(videos) or 'none written'}")
+        if device.type == "cuda":  # at least the grid build and the mesh's chunks
+            least = (math.ceil((args.grid_resolution + 1) ** 3 / GRID_CHUNK)
+                     + math.ceil(args.mesh_resolution ** 3 / MESH_CHUNK))
+            say(f"[launches] cli: {launches} (at least {least})")
+            check(launches >= least, f"the CLI launched fused_decoder {launches} times")
+        return {"cli_s": cli_s, "launches": launches, "tris": len(tris), "videos": videos}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def nvidia_smi_line() -> str:
@@ -477,6 +749,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=250,
                     help="respaced DDPM steps per layer (of 1000)")
+    ap.add_argument("--cli_steps", default="ddim50",
+                    help="the CLI phase's --timestep_respacing")
+    # The seeded random UNet's samples give a noisy density field: at 512^3
+    # their mesh had 61.5 M triangles (a 1.2 GB PLY), so the CLI phase
+    # meshes at 128^3; the 512^3 mesh is the mesh phase's, of fitted planes.
+    ap.add_argument("--cli_mesh_resolution", type=int, default=128,
+                    help="the CLI phase's --mesh_resolution")
     args = ap.parse_args(argv)
 
     import torch
@@ -496,38 +775,58 @@ def main(argv=None) -> int:
     card = nvidia_smi_line()
     say(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-    sync = torch.cuda.synchronize
+    cuda_sync = torch.cuda.synchronize
     t_start = time.perf_counter()
 
-    with Phase("build", sync):
+    with Phase("build", cuda_sync):
         build = phase_build()
-    with Phase("kernel", sync):
+    with Phase("kernel", cuda_sync):
         kern = phase_kernel(device)
 
-    # The main path: generation, then the exact decode. Counts start at 0 here.
+    # The main path, path by path; each reads fused_decoder's launches from 0.
+    paths = {}
     kernels.reset_launches()
-    with Phase("generate", sync):
+    with Phase("generate", cuda_sync):
         gen = phase_generate(device, args.steps)
-    with Phase("decode", sync):
+    with Phase("decode", cuda_sync):
         dec = phase_decode(device, gen["layers"]["person_pant_shirt_shoes"])
-        launches = kernels.LAUNCHES["fused_decoder"]
-        expected = 2 * math.ceil(dec["n_rays"] / RENDER_CHUNK)
-        say(f"[decode] fused_decoder launches on the main path: {launches} "
-            f"(expected {expected}: coarse + fine per {RENDER_CHUNK}-ray chunk)")
-        check(launches == expected and launches > 0,
-              f"main path launched fused_decoder {launches} times, expected {expected}")
-        phase_fitted_planes(device, dec["ray_args"])
+        expect_launches(device, dec["launches"], 2 * math.ceil(dec["n_rays"] / RENDER_CHUNK),
+                        "generation + exact view (generated): coarse + fine per "
+                        f"{RENDER_CHUNK}-ray chunk")
+        paths["generate + exact view (generated)"] = dec["launches"]
+        fast = phase_fast(device, dec["planes"], dec["ray_args"], "generated",
+                          exact_rgb=dec["rgb"])
+        paths["grid build (generated)"] = fast["grid_launches"]
+        paths["fast view (generated)"] = fast["fast_launches"]
+        fitted = phase_fitted_planes(device, dec["ray_args"])
+        paths["exact view (fitted)"] = fitted["launches"]
+        fast_fit = phase_fast(device, fitted["planes"], dec["ray_args"], "fitted",
+                              exact_rgb=fitted["rgb"], exact_bar=FITTED_FAST_VS_EXACT_DB)
+        paths["grid build (fitted)"] = fast_fit["grid_launches"]
+        paths["fast view (fitted)"] = fast_fit["fast_launches"]
+    with Phase("mesh", cuda_sync):
+        mesh = phase_mesh(device)
+        paths[f"mesh {MESH_RESOLUTION}^3 (fitted)"] = mesh["launches"]
+    with Phase("cli", cuda_sync):
+        cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
+                        cli_flags=("--mesh_resolution", str(args.cli_mesh_resolution)))
+        paths["cli"] = cli["launches"]
 
     say(f"summary: build {build['seconds']:.3f} s, generation "
         f"{sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x 4 layers; per layer "
-        f"{', '.join(f'{s:.3f}' for s in gen['per_layer_s'])} s), decode "
-        f"{dec['render_s']:.3f} s, total {time.perf_counter() - t_start:.3f} s")
+        f"{', '.join(f'{s:.3f}' for s in gen['per_layer_s'])} s); 512^2 view 0, exact / "
+        f"fast (grid + render): generated {dec['render_s']:.3f} / {fast['render_s']:.3f} s, "
+        f"fitted {fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s; mesh "
+        f"{MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s; cli {cli['cli_s']:.3f} s; total "
+        f"{time.perf_counter() - t_start:.3f} s")
+    say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}")
     say(json.dumps({"kernels": [{
         "name": "fused_decoder",
         "route": "cuda",
         "source": "humanliff_tpu_torch/csrc/fused_decoder.cu",
         "replaces": "humanliff_tpu/ops/pallas/decoder.py:80",
-        "launches": launches,
+        "launches": sum(paths.values()),
+        "launches_by_path": paths,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

@@ -159,3 +159,34 @@ def unet_state_dict(
     for i in range(n_enc):
         _conv(sd, f"input_blocks_proj_cond.{i}", p[f"cond_proj_{i}"]["Conv_0"])
     return sd
+
+
+def load_unet_npz(
+    path: str,
+    num_res_blocks: int = 3,
+    channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
+    attention_ds: Sequence[int] = (8, 16, 32),
+) -> StateDict:
+    """The port ``UNetModel`` state dict held in one npz, in either key layout:
+
+    - ``/``-joined keys of a flax params tree (``params/enc_in_conv/kernel``),
+      the layout of ``decoder_*.npz`` and of ``scripts/export_jax_weights.py``:
+      converted by :func:`unet_state_dict` (the model config's
+      ``num_res_blocks``, ``channel_mult`` and attention downsampling rates
+      name the blocks);
+    - the port's own dotted state-dict names (``input_blocks.0.0.weight``), as
+      ``np.savez(path, **{k: v.numpy() for k, v in model.state_dict().items()})``
+      writes them.
+
+    Keys starting with ``__`` are metadata and dropped. This does not load the
+    original HumanLiff ``.pt`` checkpoints: those may order the attention qkv
+    rows head-major, which neither layout here does.
+    """
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files if not k.startswith("__")}
+    nested = [k for k in flat if "/" in k]
+    if nested and len(nested) != len(flat):
+        raise ValueError(f"{path} mixes '/'-joined flax keys and dotted state-dict keys")
+    if nested:
+        return unet_state_dict(flat, num_res_blocks, channel_mult, attention_ds)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in flat.items()}

@@ -1,4 +1,4 @@
-"""DDPM ancestral sampling with x_cond threaded through (port of
+"""DDPM ancestral and DDIM sampling with x_cond threaded through (port of
 ``humanliff_tpu/diffusion/gaussian.py``; reference improved_diffusion/
 gaussian_diffusion.py).
 
@@ -10,10 +10,11 @@ Model callable: ``model_fn(x, t_scaled, x_cond, **model_kwargs) -> output``,
 where ``t_scaled`` already carries the respacing map and the [0, 1000) rescale.
 
 Noise: JAX draws each step's noise from ``jax.random.split(k_loop, T)``,
-which torch cannot reproduce. :meth:`GaussianDiffusion.p_sample_loop` draws
-from a ``torch.Generator``, or takes the initial noise and a per-step noise
-source from the caller, which is how the tests feed both packages the same
-noise.
+which torch cannot reproduce. The sampling loops (ancestral, DDIM, and their
+progressive forms) draw from a ``torch.Generator``, or take the initial noise
+and a per-step noise source from the caller, which is how the tests feed both
+packages the same noise. A DDIM step draws its noise at any ``eta``, as JAX
+splits a key for it, so one noise source serves every loop.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ class GaussianDiffusion:
         ac = np.cumprod(alphas)
         ac_prev = np.append(1.0, ac[:-1])
         self.alphas_cumprod = ac
+        self.alphas_cumprod_prev = ac_prev
         with np.errstate(divide="ignore"):  # beta_T == 1 in tiny-T schedules
             self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / ac)
             self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / ac - 1)
@@ -154,7 +156,7 @@ class GaussianDiffusion:
         return {"mean": model_mean, "variance": model_variance,
                 "log_variance": model_log_variance, "pred_xstart": pred_xstart}
 
-    # ---------------- ancestral sampling ----------------
+    # ---------------- sampling ----------------
 
     def p_sample(self, model_fn, x, x_cond, t, noise, clip_denoised=True, model_kwargs=None):
         """One ancestral step with the given standard-normal ``noise``."""
@@ -163,25 +165,28 @@ class GaussianDiffusion:
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return sample, out["pred_xstart"]
 
-    @torch.no_grad()
-    def p_sample_loop(
-        self,
-        model_fn: ModelFn,
-        shape,
-        generator: Optional[torch.Generator] = None,
-        x_cond=None,
-        noise: Optional[torch.Tensor] = None,
-        step_noise: Optional[StepNoise] = None,
-        clip_denoised: bool = True,
-        model_kwargs: Optional[Dict[str, Any]] = None,
-        device="cuda",
-    ) -> torch.Tensor:
-        """Ancestral sampling from t = T-1 down to 0 (gaussian_diffusion.py:390-482).
+    def ddim_sample(self, model_fn, x, x_cond, t, noise, clip_denoised=True,
+                    eta: float = 0.0, model_kwargs=None):
+        """One DDIM step (gaussian_diffusion.py:488-529); ``eta`` scales the
+        standard-normal ``noise``, and eta = 0 is the deterministic sampler."""
+        out = self.p_mean_variance(model_fn, x, t, x_cond, clip_denoised, model_kwargs)
+        eps = ((self._extract("sqrt_recip_alphas_cumprod", t, x.dim()) * x - out["pred_xstart"])
+               / self._extract("sqrt_recipm1_alphas_cumprod", t, x.dim()))
+        alpha_bar = self._extract("alphas_cumprod", t, x.dim())
+        alpha_bar_prev = self._extract("alphas_cumprod_prev", t, x.dim())
+        sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                     + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+        nonzero = (t != 0).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+        return mean_pred + nonzero * sigma * noise, out["pred_xstart"]
 
-        ``noise`` is x_T; ``step_noise[i]`` (or ``step_noise(i)``) the noise of
-        the i-th step taken (t = T-1-i). Either one missing is drawn from
-        ``generator`` on ``device``.
-        """
+    @torch.no_grad()
+    def _progressive(self, step, shape, generator, noise, step_noise, device):
+        """Yield ``{"sample", "pred_xstart"}`` after each step ``step(x, t, eps)``
+        from t = T-1 down to 0. ``noise`` is x_T; ``step_noise[i]`` (or
+        ``step_noise(i)``) the noise of the i-th step taken (t = T-1-i). Either
+        one missing is drawn from ``generator`` on ``device``."""
         def normal():
             return torch.randn(shape, generator=generator, device=device)
 
@@ -194,5 +199,71 @@ class GaussianDiffusion:
             else:
                 eps = step_noise(i) if callable(step_noise) else step_noise[i]
                 eps = eps.to(device=device, dtype=torch.float32)
-            x, _ = self.p_sample(model_fn, x, x_cond, t, eps, clip_denoised, model_kwargs)
-        return x
+            x, pred_xstart = step(x, t, eps)
+            yield {"sample": x, "pred_xstart": pred_xstart}
+
+    def p_sample_loop_progressive(
+        self,
+        model_fn: ModelFn,
+        shape,
+        generator: Optional[torch.Generator] = None,
+        x_cond=None,
+        noise: Optional[torch.Tensor] = None,
+        step_noise: Optional[StepNoise] = None,
+        clip_denoised: bool = True,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+        device="cuda",
+    ):
+        """Ancestral sampling that yields ``{"sample", "pred_xstart"}`` after
+        every step (gaussian_diffusion.py:445-482); noise as in :meth:`p_sample_loop`."""
+        def step(x, t, eps):
+            return self.p_sample(model_fn, x, x_cond, t, eps, clip_denoised, model_kwargs)
+
+        return self._progressive(step, shape, generator, noise, step_noise, device)
+
+    def ddim_sample_loop_progressive(
+        self,
+        model_fn: ModelFn,
+        shape,
+        generator: Optional[torch.Generator] = None,
+        x_cond=None,
+        noise: Optional[torch.Tensor] = None,
+        step_noise: Optional[StepNoise] = None,
+        clip_denoised: bool = True,
+        eta: float = 0.0,
+        model_kwargs: Optional[Dict[str, Any]] = None,
+        device="cuda",
+    ):
+        """The DDIM twin of :meth:`p_sample_loop_progressive`
+        (gaussian_diffusion.py:617-651)."""
+        def step(x, t, eps):
+            return self.ddim_sample(model_fn, x, x_cond, t, eps, clip_denoised, eta,
+                                    model_kwargs)
+
+        return self._progressive(step, shape, generator, noise, step_noise, device)
+
+    def p_sample_loop(self, model_fn: ModelFn, shape, generator=None, x_cond=None,
+                      noise=None, step_noise=None, clip_denoised: bool = True,
+                      model_kwargs=None, device="cuda") -> torch.Tensor:
+        """Ancestral sampling from t = T-1 down to 0 (gaussian_diffusion.py:390-482).
+
+        ``noise`` is x_T; ``step_noise[i]`` (or ``step_noise(i)``) the noise of
+        the i-th step taken (t = T-1-i). Either one missing is drawn from
+        ``generator`` on ``device``.
+        """
+        for out in self.p_sample_loop_progressive(model_fn, shape, generator, x_cond, noise,
+                                                  step_noise, clip_denoised, model_kwargs,
+                                                  device):
+            pass
+        return out["sample"]
+
+    def ddim_sample_loop(self, model_fn: ModelFn, shape, generator=None, x_cond=None,
+                         noise=None, step_noise=None, clip_denoised: bool = True,
+                         eta: float = 0.0, model_kwargs=None, device="cuda") -> torch.Tensor:
+        """DDIM sampling from t = T-1 down to 0 (gaussian_diffusion.py:569-615);
+        noise as in :meth:`p_sample_loop`."""
+        for out in self.ddim_sample_loop_progressive(model_fn, shape, generator, x_cond,
+                                                     noise, step_noise, clip_denoised, eta,
+                                                     model_kwargs, device):
+            pass
+        return out["sample"]

@@ -38,6 +38,41 @@ class RenderConfig:
     density_noise: bool = True  # reference training-time alpha noise
 
 
+def features_along(planes: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                   z_vals: torch.Tensor, box_warp: torch.Tensor) -> torch.Tensor:
+    """``(R * S, 27)`` features at the points ``o + z d`` in the planes' dtype."""
+    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    return sample_triplane_features(planes, pts.reshape(-1, 3), box_warp).to(planes.dtype)
+
+
+def shade_rays(
+    decoder,
+    planes: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    z_vals: torch.Tensor,
+    box_warp: torch.Tensor,
+    white_bkgd: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """The fine pass at the depths ``z_vals`` ``(R, S)``: the full decoder,
+    sigmoid rgb, compositing (density noise from ``generator`` if given) and
+    depth normalized by near/far (renderer.py:271-288)."""
+    R, S = z_vals.shape
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3).to(planes.dtype)
+    rgb_raw, dens_raw = decoder(features_along(planes, rays_o, rays_d, z_vals, box_warp), dirs)
+    rgb = torch.sigmoid(rgb_raw).reshape(R, S, 3)
+    dens = dens_raw[:, 0].reshape(R, S)
+    rgb_map, acc_map, depth_map = composite_rays(
+        rgb, dens, z_vals, generator=generator, white_bkgd=white_bkgd
+    )
+    depth_map = (depth_map - near) / (far - near + 1e-5)
+    return {"rgb": rgb_map, "acc": acc_map, "depth": depth_map}
+
+
 def render_rays(
     decoder,
     planes: torch.Tensor,
@@ -61,32 +96,40 @@ def render_rays(
     g_strat = generator if cfg.perturb else None
     z_vals = stratified_z_vals(near, far, cfg.n_samples, generator=g_strat)
 
-    def features_at(z: torch.Tensor) -> torch.Tensor:
-        pts = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-        feats = sample_triplane_features(planes, pts.reshape(-1, 3), box_warp)
-        return feats.to(planes.dtype)
-
     if cfg.n_importance > 0:
         with torch.no_grad():  # coarse pass: density only (renderer.py:258-269)
-            _, dens = decoder(features_at(z_vals))
+            _, dens = decoder(features_along(planes, rays_o, rays_d, z_vals, box_warp))
             dens = dens[:, 0].reshape(R, cfg.n_samples)
             new_z = upsample_z_vals(dens, z_vals, rays_d, cfg.n_importance,
                                     generator=generator)
             z_vals = merge_z_vals(z_vals, new_z)
 
-    S = z_vals.shape[-1]
-    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3).to(planes.dtype)
-    rgb_raw, dens_raw = decoder(features_at(z_vals), dirs)
-    rgb = torch.sigmoid(rgb_raw).reshape(R, S, 3)
-    dens = dens_raw[:, 0].reshape(R, S)
+    return shade_rays(decoder, planes, rays_o, rays_d, near, far, z_vals, box_warp,
+                      cfg.white_bkgd, generator if cfg.density_noise else None)
 
-    noise = generator if cfg.density_noise else None
-    rgb_map, acc_map, depth_map = composite_rays(
-        rgb, dens, z_vals, generator=noise, white_bkgd=cfg.white_bkgd
-    )
-    depth_map = (depth_map - near) / (far - near + 1e-5)
-    return {"rgb": rgb_map, "acc": acc_map, "depth": depth_map}
+
+def masked_rays(device, rays_o, rays_d, near, far, mask, box_warp, bg_color: float,
+                outputs: Tuple[str, ...]):
+    """Upload a full image's rays once and compact them to the ones in the box.
+
+    Returns the in-box ray indices ``idx`` (on ``device``), the compacted
+    (rays_o, rays_d, near, far), the box, and the full-image outputs to
+    scatter into: ``bg_color`` rgb (N, 3), zero acc (N,) and depth (N,), as
+    the reference zeroes off-box pixels (all_test.py:178).
+    """
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
+
+    N = np.asarray(mask).size
+    sel = torch.as_tensor(np.asarray(mask).reshape(-1).astype(bool)).to(device)
+    idx = torch.nonzero(sel)[:, 0]
+    rays = tuple(dev(a)[idx] for a in (rays_o, rays_d, near, far))
+    full = {
+        "rgb": torch.full((N, 3), bg_color, dtype=torch.float32, device=device),
+        "acc": torch.zeros((N,), dtype=torch.float32, device=device),
+        "depth": torch.zeros((N,), dtype=torch.float32, device=device),
+    }
+    return idx, rays, dev(box_warp), {k: full[k] for k in outputs}
 
 
 @torch.no_grad()
@@ -112,25 +155,9 @@ def render_image_masked(
     Returns ``{name: tensor}`` on the planes' device: rgb (N, 3), acc (N,),
     depth (N,). Deterministic: no jitter, no density noise.
     """
-    device = planes.device
-
-    def dev(a):
-        return torch.as_tensor(np.asarray(a, np.float32)).to(device)
-
-    ro, rd, nr, fr = dev(rays_o), dev(rays_d), dev(near), dev(far)
-    N = ro.shape[0]
-    sel = torch.as_tensor(np.asarray(mask).reshape(-1).astype(bool)).to(device)
-    idx = torch.nonzero(sel)[:, 0]
-    ro, rd, nr, fr = ro[idx], rd[idx], nr[idx], fr[idx]
-    box = torch.as_tensor(np.asarray(box_warp, np.float32)).to(device)
+    idx, (ro, rd, nr, fr), box, full = masked_rays(planes.device, rays_o, rays_d, near,
+                                                   far, mask, box_warp, bg_color, outputs)
     eval_cfg = dataclasses.replace(cfg, perturb=False, density_noise=False)
-
-    full = {
-        "rgb": torch.full((N, 3), bg_color, dtype=torch.float32, device=device),
-        "acc": torch.zeros((N,), dtype=torch.float32, device=device),
-        "depth": torch.zeros((N,), dtype=torch.float32, device=device),
-    }
-    full = {k: full[k] for k in outputs}
     for s in range(0, idx.shape[0], chunk):
         sl = slice(s, s + chunk)
         out = render_rays(decoder, planes, ro[sl], rd[sl], nr[sl], fr[sl], box, eval_cfg)

@@ -75,6 +75,21 @@ def sample_pdf(
     return bins_b + t * (bins_a - bins_b)
 
 
+def coarse_weights(densities: torch.Tensor, z_vals: torch.Tensor,
+                   rays_d: torch.Tensor) -> torch.Tensor:
+    """Compositing weights ``(..., R, S)`` of raw coarse densities as the
+    up-sampler sees them: z widths scaled by ``||d||`` (renderer.py:171), a
+    1e10 tail interval and transmittance epsilon 1e-10."""
+    dists = z_vals[..., 1:] - z_vals[..., :-1]
+    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
+    dists = dists * torch.linalg.norm(rays_d, dim=-1)[..., None]
+    alpha = 1.0 - torch.exp(-softplus(densities) * dists)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1
+    )[..., :-1]
+    return alpha * trans
+
+
 def upsample_z_vals(
     densities: torch.Tensor,
     z_vals: torch.Tensor,
@@ -83,15 +98,8 @@ def upsample_z_vals(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Importance-sample ``n_importance`` new depths (unsorted) from raw coarse
-    densities ``(..., R, S)``; dists scale by ``||d||`` here (renderer.py:171)."""
-    dists = z_vals[..., 1:] - z_vals[..., :-1]
-    dists = torch.cat([dists, torch.full_like(dists[..., :1], 1e10)], dim=-1)
-    dists = dists * torch.linalg.norm(rays_d, dim=-1)[..., None]
-    alpha = 1.0 - torch.exp(-softplus(densities) * dists)
-    trans = torch.cumprod(
-        torch.cat([torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1), dim=-1
-    )[..., :-1]
-    weights = alpha * trans
+    densities ``(..., R, S)`` weighted by :func:`coarse_weights`."""
+    weights = coarse_weights(densities, z_vals, rays_d)
     z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
     return sample_pdf(z_mid, weights[..., 1:-1], n_importance, generator=generator)
 

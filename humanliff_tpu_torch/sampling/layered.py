@@ -7,6 +7,10 @@ NHWC ``(B, H, W, 27)`` in [-1, 1]; the UNet sees them as NCHW views, which are
 channels_last in memory, so no copy is made. On CUDA the UNet runs under bf16
 autocast and the diffusion arithmetic stays fp32.
 
+``use_ddim`` samples by DDIM (eta 0) instead of the ancestral chain, over the
+diffusion's respaced steps (``timestep_respacing="ddim50"``).
+``generate_layer_progressive`` also records the denoising trajectory.
+
 Not ported yet: ``parallel_window`` (Picard sampling), ``plan_workload`` /
 ``generate_workload`` (their cost table was measured on a TPU) and the sharded
 path.
@@ -16,6 +20,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion, StepNoise
@@ -49,6 +54,13 @@ def _model_fn(model, autocast: bool):
     return fn
 
 
+def _layer_inputs(layer_idx, x_cond, batch_size, image_size, channels, device):
+    shape = (batch_size, image_size, image_size, channels)
+    x_cond = torch.zeros(shape, device=device) if x_cond is None else x_cond.to(device)
+    y = torch.full((batch_size,), layer_idx, dtype=torch.int64, device=device)
+    return shape, x_cond, y
+
+
 @torch.no_grad()
 def generate_layer(
     model,
@@ -63,22 +75,64 @@ def generate_layer(
     noise: Optional[torch.Tensor] = None,
     step_noise: Optional[StepNoise] = None,
     device="cuda",
+    use_ddim: bool = False,
 ) -> torch.Tensor:
-    """Sample one layer: (B, H, W, C) in [-1, 1] by the DDPM ancestral chain.
+    """Sample one layer: (B, H, W, C) in [-1, 1] by the DDPM ancestral chain,
+    or by DDIM with ``use_ddim``.
 
     ``noise`` / ``step_noise`` inject x_T and the per-step noise (see
     ``GaussianDiffusion.p_sample_loop``); otherwise they come from ``generator``.
     """
     device = torch.device(device)
-    shape = (batch_size, image_size, image_size, channels)
-    if x_cond is None:
-        x_cond = torch.zeros(shape, device=device)
-    y = torch.full((batch_size,), layer_idx, dtype=torch.int64, device=device)
-    return diffusion.p_sample_loop(
+    shape, x_cond, y = _layer_inputs(layer_idx, x_cond, batch_size, image_size, channels,
+                                     device)
+    loop = diffusion.ddim_sample_loop if use_ddim else diffusion.p_sample_loop
+    return loop(
         _model_fn(model, device.type == "cuda"), shape, generator=generator,
-        x_cond=x_cond.to(device), noise=noise, step_noise=step_noise,
+        x_cond=x_cond, noise=noise, step_noise=step_noise,
         clip_denoised=clip_denoised, model_kwargs={"y": y}, device=device,
     )
+
+
+@torch.no_grad()
+def generate_layer_progressive(
+    model,
+    diffusion: GaussianDiffusion,
+    layer_idx: int,
+    x_cond: Optional[torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    batch_size: int = 1,
+    image_size: int = 256,
+    channels: int = 27,
+    record_every: int = 10,
+    use_ddim: bool = False,
+    clip_denoised: bool = True,
+    noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[StepNoise] = None,
+    device="cuda",
+) -> Tuple[torch.Tensor, List[Tuple[int, np.ndarray]]]:
+    """:func:`generate_layer` that also records the denoising trajectory:
+    returns ``(samples, traj)``, ``traj`` a list of ``(t, pred_xstart numpy)``
+    every ``record_every`` steps and at t = 0 (the reference's
+    ``p_sample_loop_progressive``, gaussian_diffusion.py:445-482). Only the
+    recorded steps come to the host.
+    """
+    device = torch.device(device)
+    shape, x_cond, y = _layer_inputs(layer_idx, x_cond, batch_size, image_size, channels,
+                                     device)
+    loop = (diffusion.ddim_sample_loop_progressive if use_ddim
+            else diffusion.p_sample_loop_progressive)
+    T = diffusion.num_timesteps
+    traj, x = [], None
+    for i, out in enumerate(loop(
+            _model_fn(model, device.type == "cuda"), shape, generator=generator,
+            x_cond=x_cond, noise=noise, step_noise=step_noise,
+            clip_denoised=clip_denoised, model_kwargs={"y": y}, device=device)):
+        x = out["sample"]
+        t = T - 1 - i
+        if i % max(record_every, 1) == 0 or t == 0:
+            traj.append((t, out["pred_xstart"].float().cpu().numpy()))
+    return x, traj
 
 
 def generate_all_layers(
@@ -92,6 +146,7 @@ def generate_all_layers(
     noises: Optional[Sequence[Tuple[torch.Tensor, StepNoise]]] = None,
     device="cuda",
     callback: Optional[Callable[[str, torch.Tensor], None]] = None,
+    use_ddim: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The progressive chain; returns ``{layer_name: (B, H, W, C)}``.
 
@@ -104,7 +159,7 @@ def generate_all_layers(
         noise, step_noise = noises[k] if noises is not None else (None, None)
         samples = generate_layer(
             model, diffusion, k, x_cond, generator, batch_size, image_size, channels,
-            noise=noise, step_noise=step_noise, device=device,
+            noise=noise, step_noise=step_noise, device=device, use_ddim=use_ddim,
         )
         name = LAYER_NAMES[k] if k < len(LAYER_NAMES) else f"layer_{k}"
         out[name] = samples

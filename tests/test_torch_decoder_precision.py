@@ -235,12 +235,14 @@ def _chip_smoke():
 @pytest.mark.parametrize("M,full,dtype,term", [
     (4_194_304, True, "bfloat16", "tf32 tensor"),
     (2_097_152, False, "bfloat16", "tf32 tensor"),
+    (2_146_689, False, "bfloat16", "tf32 tensor"),
+    (4_194_304, False, "float32", "tf32 tensor"),
     (1, False, "float32", "bytes"),
 ])
 def test_decoder_bound_terms(M, full, dtype, term):
     """chip_smoke.decoder_bound_ms: the tensor-core term binds the main path's
-    two shapes (a render chunk's fine and coarse pass); the weights' bytes
-    bind a single point."""
+    shapes (a render chunk's fine and coarse pass, the 129^3 density grid, a
+    mesh tile of fp32 features); the weights' bytes bind a single point."""
     b = _chip_smoke().decoder_bound_ms(M, dtype, full)
     assert b["term"] == term
     assert b["by"] == ("bytes" if term == "bytes" else "operations")

@@ -1,6 +1,7 @@
 """The port package and the scripts that drive it on the card
-(chip_smoke.py, scripts/profile_torch_step.py) import neither JAX, flax nor
-the JAX package ``humanliff_tpu``: a GPU machine need not have JAX."""
+(chip_smoke.py, scripts/profile_torch_step.py, scripts/profile_torch_decode.py)
+import neither JAX, flax nor the JAX package ``humanliff_tpu``: a GPU machine
+need not have JAX."""
 
 import ast
 import os
@@ -17,6 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "humanliff_tpu")
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     files.append(os.path.join(REPO, "scripts", "profile_torch_step.py"))
+    files.append(os.path.join(REPO, "scripts", "profile_torch_decode.py"))
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(os.path.relpath(f, REPO) for f in files)
