@@ -1,5 +1,6 @@
 """The port package and the scripts that drive it on the card
-(chip_smoke.py, scripts/profile_torch_step.py, scripts/profile_torch_decode.py)
+(chip_smoke.py, scripts/profile_torch_step.py, scripts/profile_torch_decode.py,
+scripts/fast_tier_margin.py)
 import neither JAX, flax nor the JAX package ``humanliff_tpu``: a GPU machine
 need not have JAX."""
 
@@ -19,6 +20,7 @@ def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
     files.append(os.path.join(REPO, "scripts", "profile_torch_step.py"))
     files.append(os.path.join(REPO, "scripts", "profile_torch_decode.py"))
+    files.append(os.path.join(REPO, "scripts", "fast_tier_margin.py"))
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(os.path.relpath(f, REPO) for f in files)
