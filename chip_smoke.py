@@ -37,10 +37,20 @@ Phases, each printed with its seconds and failed past its budget:
               DDIM, --decode (40 views, fast tier, 128^3 mesh) and
               --report_fidelity, from the seeded UNet saved as an npz; its
               launches against a count worked out from the saved sample    360 s
+    train     Stage-2 training (humanliff_tpu_torch.cli.diff_train), five
+              checks: one fp32 step at a small width on the card against
+              the same step on the CPU; 20 steps of the CLI at the flagship
+              width on the fitted campaign planes (B 8, microbatches of 2,
+              bf16, data on the card) with s/step, device ms/step, busy
+              share, peak memory and the full save; descent on a fixed
+              batch; one step's loss and gradients in bf16 against fp32;
+              the CLI resumed for a 21st step (the restore checked bit for
+              bit), then diff_sample --model_dir on its checkpoint        300 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
-mesh, the CLI) and read just after it. The last three lines are a
+mesh, the CLI, training) and read just after it; training renders nothing
+and must launch the decoder kernel 0 times. The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
 budget exits non-zero before the result. Without CUDA, or run outside a
@@ -68,7 +78,7 @@ PLANES_NPZ = os.path.join(REPO, "runs", "quality", "stage2", "planes",
                           "campaign0000_060000.npz")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
-            "cli": 360}
+            "cli": 360, "train": 300}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -93,6 +103,18 @@ MIN_LIT_SHARE = 0.25
 # it (the grid's x and z axes swapped) 27.1589 dB: the margin is half of that
 # 0.8936 dB gap.
 FITTED_FAST_VS_EXACT_DB = 28.0526 - 0.447
+
+# Training's descent check: after 10 steps on one fixed batch, t and noise
+# (lr 5e-5, B 8 in microbatches of 2, bf16) the loss must have fallen by this
+# share of its first value. The CPU rehearsal at image 16 and 32 channels, on
+# the fitted planes resized, fell 0.76 % (1.0036 -> 0.9959; 1.42 % at image 32
+# and 64 channels): the bar is half of the small width's drop.
+DESCENT_MIN_DROP = 0.0038
+# bf16 autocast against fp32 (TF32 off), one flagship step on that batch,
+# seeded weights: bars on the loss's relative difference and the gradients'
+# relative L2, about 10x and 6x what an H100 (700 W) measured: 5.36e-5 and
+# 5.11e-3.
+BF16_LOSS_REL, BF16_GRAD_REL = 5e-4, 3e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
 # tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
@@ -834,6 +856,363 @@ def phase_cli(device, prev_layer, steps="ddim50", model_kwargs=None, cli_flags=(
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _noise_floor(mu) -> set:
+    """Tensors whose gradient is rounding noise: a conv bias ahead of a
+    GroupNorm with one channel per group has a gradient of 0 in exact
+    arithmetic. They hold under 1e-6 of the whole gradient's norm."""
+    floor = 1e-6 * math.sqrt(sum(float(v.double().pow(2).sum()) for v in mu.values()))
+    return {n for n, v in mu.items() if float(v.double().norm()) <= floor}
+
+
+def compare_train_states(got, want, m_got, m_want, lr, label) -> dict:
+    """One train step's results on two devices (``got`` on the card, ``want``
+    on the CPU; fp32, TF32 off). Bars:
+
+    - metrics rtol 1e-4; sampler counts exact, history rtol 1e-4;
+    - the first Adam moment (0.1 x the clipped gradient) per tensor relative
+      L2 1e-4, the second 2e-4; noise-floor tensors (``_noise_floor``) under
+      1e-5 of the gradient's norm on both sides;
+    - params and EMA: a first Adam step is lr x g / (|g| + eps), about lr x
+      sign(g), so an element whose gradient's sign differs in the last bits
+      moves 2 x lr apart. All within 2 x lr (x (1 - rate) for an EMA); at
+      most 1e-4 of the elements of tensors off the noise floor beyond 1e-2 x
+      lr (an H100 at 700 W: 27 of 912,603, 0.35 x lr the farthest).
+    """
+    import torch
+
+    def sd(state, flat):
+        return {k: v.detach().double().cpu() for k, v in state.layout.views(flat).items()}
+
+    out = {}
+    for k in m_want:
+        a, b = float(m_got[k]), float(m_want[k])
+        check(abs(a - b) <= 1e-4 * abs(b) + 1e-7, f"{label}: metric {k} {a} vs {b}")
+        out[f"metric_{k}"] = abs(a - b) / max(abs(b), 1e-30)
+    mu_w = sd(want, want.opt_state["mu"])
+    noise = _noise_floor(mu_w)
+    total = math.sqrt(sum(float(v.pow(2).sum()) for v in mu_w.values()))
+    for key, bar in (("mu", 1e-4), ("nu", 2e-4)):
+        a, b = sd(got, got.opt_state[key]), sd(want, want.opt_state[key])
+        worst = 0.0
+        for n in b:
+            if n in noise:
+                check(key == "nu" or float(a[n].norm()) <= 1e-5 * total,
+                      f"{label}: {n} off the noise floor on the card")
+                continue
+            rel = float((a[n] - b[n]).norm() / b[n].norm().clamp(min=1e-30))
+            check(rel <= bar, f"{label}: Adam {key} of {n}: relative L2 {rel:.3e} > {bar}")
+            worst = max(worst, rel)
+        out[f"{key}_rel_l2"] = worst
+    rates = sorted(want.ema_params)
+    for what, a, b, scale in ([("params", sd(got, got.params), sd(want, want.params), 1.0)]
+                              + [(f"ema {r}", sd(got, got.ema_params[r]),
+                                  sd(want, want.ema_params[r]), 1.0 - float(r)) for r in rates]):
+        n_off = n_all = 0
+        worst = 0.0
+        for n in b:
+            d = (a[n] - b[n]).abs()
+            worst = max(worst, float(d.max()) / (lr * scale))
+            check(float(d.max()) <= 2 * lr * scale + 1e-7, f"{label}: {what} {n} moved apart")
+            if n not in noise:
+                n_off += int((d > 1e-2 * lr * scale + 1e-9).sum())
+                n_all += d.numel()
+        check(n_off <= 1e-4 * n_all, f"{label}: {what}: {n_off} of {n_all} elements apart")
+        out[f"{what}_max_over_lr"] = worst
+        out[f"{what}_elements_apart"] = n_off
+    if want.sampler_state is not None:
+        check(torch.equal(got.sampler_state["counts"].cpu(), want.sampler_state["counts"]),
+              f"{label}: sampler counts differ")
+        h_a, h_b = got.sampler_state["history"].cpu(), want.sampler_state["history"]
+        check(torch.allclose(h_a, h_b, rtol=1e-4, atol=1e-7), f"{label}: sampler history differs")
+    return out
+
+
+def _small_step_card_vs_cpu(device) -> dict:
+    """Check 1: one fp32 step at image 16, 32 channels, batch 4 in
+    microbatches of 2, the loss-aware sampler warmed, t and noise injected,
+    on the card and on the CPU."""
+    import copy
+
+    import torch
+
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.train.stage2 import Stage2Config, create_stage2_state, train_step
+
+    kw = dict(image_size=16, num_channels=32, num_res_blocks=1, attention_resolutions="8",
+              num_heads=2)
+    model, diffusion = create_model_and_diffusion(**kw)
+    seed_weights(model, 0)
+    cfg = Stage2Config(lr=1e-3, microbatch=2, ema_rates=(0.9, 0.9999),
+                       schedule_sampler="loss-second-moment")
+    rng = np.random.default_rng(4)
+    T = diffusion.num_timesteps
+    sampler = {"history": torch.from_numpy(rng.uniform(0.1, 2.0, (T, 10)).astype(np.float32)),
+               "counts": torch.full((T,), 10, dtype=torch.int32)}
+    batch = {"x": torch.from_numpy(rng.normal(scale=0.4, size=(4, 16, 16, 27)).astype(np.float32)),
+             "x_cond": torch.from_numpy(rng.normal(scale=0.4, size=(4, 16, 16, 27))
+                                        .astype(np.float32)),
+             "y": torch.tensor([0, 1, 2, 3])}
+    t = torch.tensor([3, 250, 251, 990])
+    noise = torch.from_numpy(rng.standard_normal((4, 16, 16, 27)).astype(np.float32))
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev)
+        state = create_stage2_state(m, cfg, T)
+        state.sampler_state = {k: v.to(dev) for k, v in sampler.items()}
+        metrics = train_step(state, m, diffusion, cfg, {k: v.to(dev) for k, v in batch.items()},
+                             t=t.to(dev), noise=noise.to(dev))
+        runs.append((state, metrics))
+    errs = compare_train_states(runs[0][0], runs[1][0], runs[0][1], runs[1][1], cfg.lr,
+                                "train small card vs cpu")
+    say(f"[train] check 1, image 16 / 32 channels, one fp32 step, card vs CPU: "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    return errs
+
+
+class StepTimer:
+    """Wraps ``train_step``: each call between two synchronizes, timed by the
+    host clock and by CUDA events; call ``profile_at`` runs under
+    torch.profiler, for the device's busy share."""
+
+    def __init__(self, fn, device, profile_at: int):
+        self.fn, self.device, self.profile_at = fn, device, profile_at
+        self.wall, self.event_ms, self.kernel_ms, self.kernels = [], [], None, None
+        self.top = []
+
+    def __call__(self, *args, **kwargs):
+        import contextlib
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        sync(self.device)
+        i = len(self.wall)
+        prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                if cuda and i == self.profile_at else contextlib.nullcontext())
+        if cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+        with prof:
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            if cuda:
+                end.record()
+            sync(self.device)
+            self.wall.append(time.perf_counter() - t0)
+        if cuda:
+            self.event_ms.append(start.elapsed_time(end))
+        if prof is not None and i == self.profile_at and cuda:
+            on_device = [e for e in prof.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+            self.kernel_ms = sum(device_us(e) for e in on_device) / 1e3
+            self.kernels = sum(e.count for e in on_device)
+            # Operators by the device time of the kernels they launched.
+            ops = [e for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CUDA and device_us(e) > 0]
+            self.top = [(e.key[:60], device_us(e) / 1e3, e.count)
+                        for e in sorted(ops, key=device_us, reverse=True)[:10]]
+        return out
+
+
+def device_us(evt) -> float:
+    """A profiler event's own device time, microseconds (the attribute's name
+    changed across torch versions)."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def phase_train(device, model_kwargs=None, planes=None, steps=20, batch_size=8,
+                microbatch=2, descent_steps=10) -> dict:
+    """Stage-2 training's five checks (module docstring). ``planes`` (1, L,
+    3, C3, S, S) defaults to the fitted campaign planes; the model, the two
+    checkpoints (about 8 GB and 4 GB at the flagship width) and the samples
+    live in a temporary directory, removed at the end."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import diff_sample, diff_train
+    from humanliff_tpu_torch.data.triplane_data import pack_subject_planes
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+    from humanliff_tpu_torch.train.stage2 import Stage2Config, create_stage2_state, train_step
+
+    out = {"small": _small_step_card_vs_cpu(device)}
+    model_kwargs = dict(model_kwargs or {})
+    flags = [x for k, v in model_kwargs.items() for x in (f"--{k}", str(v))]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # Check 2: the CLI at the flagship width on the fitted planes.
+        packed = os.path.join(tmp, "planes.npy")
+        src = PLANES_NPZ
+        if planes is not None:
+            src = os.path.join(tmp, "subject_000000.npz")
+            ckpt.save_subject_planes(src, planes[0], 0)
+        pack_subject_planes([src], packed)
+        logdir = os.path.join(tmp, "run")
+        base = ["--data_dir", packed, "--batch_size", str(batch_size), "--microbatch",
+                str(microbatch), "--log_interval", str(steps // 2), "--save_interval",
+                str(steps), "--logdir", logdir, "--device", device.type, *flags]
+        argv = base + ["--total_steps", str(steps)]
+        say(f"[train] python -m humanliff_tpu_torch.cli.diff_train {' '.join(argv)}")
+        # The profiled step is the third, a warm-up step left out of the
+        # median, inside the first log interval with the first two.
+        timer = StepTimer(diff_train.train_step, device, profile_at=2)
+        saves = []
+        real_save = ckpt.save_state
+
+        def timed_save(ckpt_dir, step, state):
+            t0 = time.perf_counter()
+            path = real_save(ckpt_dir, step, state)
+            saves.append((step, time.perf_counter() - t0,
+                          os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e9))
+            return path
+
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        diff_train.train_step, ckpt.save_state = timer, timed_save
+        try:
+            t0 = time.perf_counter()
+            diff_train.main(argv)
+            train_s = time.perf_counter() - t0
+        finally:
+            diff_train.train_step, ckpt.save_state = train_step, real_save
+        launches = kernels.LAUNCHES.get("fused_decoder", 0)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+        with open(os.path.join(logdir, "progress.json")) as f:
+            logs = [json.loads(line) for line in f]
+        for m in logs:
+            say(f"[train] step {m['step']}: loss {m['loss']:.6f}, grad_norm {m['grad_norm']:.6f}, "
+                f"loss_q0..3 {', '.join(f'{m[f'loss_q{q}']:.4f}' for q in range(4))}, "
+                f"steps/s {m['steps_per_sec']:.4f}")
+        check(len(logs) == 2 and all(math.isfinite(v) for m in logs for v in m.values()),
+              f"non-finite or missing training logs: {logs}")
+        steady = timer.wall[3:]
+        wall_s = statistics.median(steady)
+        rec = {"steps": steps, "train_s": train_s, "wall_s_per_step": wall_s,
+               "wall_s_all": timer.wall, "peak_gb": peak_gb, "saves": saves,
+               "losses": [m["loss"] for m in logs], "launches": launches}
+        if device.type == "cuda":
+            rec.update(event_ms_per_step=statistics.median(timer.event_ms[3:]),
+                       kernel_ms=timer.kernel_ms,
+                       kernels=timer.kernels, busy=timer.kernel_ms / (1e3 * wall_s))
+            say(f"[train] check 2, flagship width: {steps} steps in {train_s:.3f} s; s/step "
+                f"(median of steps 4-{steps}) {wall_s:.4f}; device ms/step by CUDA "
+                f"events {rec['event_ms_per_step']:.3f}; profiled step {timer.profile_at + 1}: "
+                f"{timer.kernel_ms:.3f} ms of kernels ({timer.kernels} launches), busy share "
+                f"{rec['busy']:.4f}; peak memory {peak_gb:.3f} GB")
+            say("[train] profiled step, operators by kernel ms (ms, calls): "
+                + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in timer.top))
+        say(f"[train] saves (step, s, GB): {saves}; per-step wall s: "
+            f"{', '.join(f'{w:.4f}' for w in timer.wall)}")
+        check(saves and saves[-1][0] == steps, f"no final save at step {steps}: {saves}")
+
+        # Checks 4 and 3 at the same width on one fixed batch of the fitted
+        # planes, t and noise: bf16 against fp32 with seeded weights in every
+        # layer (at PyTorch's initialisation the zero-initialised output conv
+        # makes both outputs 0), then descent from that initialisation.
+        with torch.device(device):
+            model, diffusion = create_model_and_diffusion(**model_kwargs)
+        seed_weights(model, 0)
+        planes_t = torch.from_numpy(np.load(packed)[0]).to(device)  # (L, C, S, S)
+        planes_t = planes_t.permute(0, 2, 3, 1).contiguous()  # NHWC
+        L, S, C = planes_t.shape[0], planes_t.shape[1], planes_t.shape[3]
+        idx = torch.arange(batch_size, device=device) % L
+        batch = {"planes": planes_t, "idx": idx, "y": idx % L}
+        g = torch.Generator(device=device).manual_seed(7)
+        t = torch.randint(0, diffusion.num_timesteps, (batch_size,), generator=g, device=device)
+        noise = torch.randn(batch_size, S, S, C, generator=g, device=device)
+        grads = {}
+        for bf16 in (True, False):  # lr 0 and no clipping: state.grads are the raw gradients
+            cfg = Stage2Config(lr=0.0, microbatch=microbatch, grad_clip_value=0.0,
+                               grad_clip_norm=0.0, use_bf16=bf16)
+            state = create_stage2_state(model, cfg, diffusion.num_timesteps)
+            m = train_step(state, model, diffusion, cfg, batch, t=t, noise=noise)
+            grads[bf16] = (float(m["loss"]), state.grads.double())
+            del state
+        loss_rel = abs(grads[True][0] - grads[False][0]) / abs(grads[False][0])
+        g16, g32 = grads[True][1], grads[False][1]
+        grad_rel = float((g16 - g32).norm() / g32.norm())
+        del grads, g16, g32
+        say(f"[train] check 4, bf16 vs fp32 (TF32 off), one flagship step: loss "
+            f"{loss_rel:.4e} relative (bar {BF16_LOSS_REL}), gradients relative L2 "
+            f"{grad_rel:.4e} (bar {BF16_GRAD_REL})")
+        check(loss_rel <= BF16_LOSS_REL and grad_rel <= BF16_GRAD_REL,
+              f"bf16 step disagrees with fp32: loss {loss_rel}, gradients {grad_rel}")
+        del model
+        torch.manual_seed(0)
+        with torch.device(device):
+            model, diffusion = create_model_and_diffusion(**model_kwargs)
+        cfg = Stage2Config(lr=5e-5, microbatch=microbatch, use_bf16=True)
+        state = create_stage2_state(model, cfg, diffusion.num_timesteps)
+        losses = [float(train_step(state, model, diffusion, cfg, batch, t=t, noise=noise)["loss"])
+                  for _ in range(descent_steps + 1)]
+        drop = 1.0 - losses[-1] / losses[0]
+        say(f"[train] check 3, descent on a fixed batch: loss {losses[0]:.6f} -> "
+            f"{losses[-1]:.6f} after {descent_steps} steps ({drop:.4%}; bar "
+            f"{DESCENT_MIN_DROP:.2%}): {', '.join(f'{v:.6f}' for v in losses)}")
+        check(all(math.isfinite(v) for v in losses) and drop >= DESCENT_MIN_DROP,
+              f"the loss did not descend: {losses}")
+        del state, model
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # Check 5: resume for a 21st step, the restore checked against the
+        # file bit for bit, then sample from its (light) checkpoint.
+        restored_ok = []
+        real_restore = diff_train.restore_into
+
+        def checked_restore(state, restored):
+            full = real_restore(state, restored)
+            views = state.layout.views
+            pairs = [(views(state.params), restored["params"])]
+            pairs += [(views(state.ema_params[r]), restored["ema_params"][r])
+                      for r in restored["ema_params"]]
+            if full:
+                pairs += [(views(state.opt_state[k]), restored["opt_state"][k])
+                          for k in ("mu", "nu")]
+            same = all(torch.equal(a[n], b[n].to(a[n].device)) for a, b in pairs for n in b)
+            same &= (not full) or state.opt_state["count"] == restored["opt_state"]["count"]
+            restored_ok.append((full, same))
+            return full
+
+        diff_train.restore_into = checked_restore
+        try:
+            resumed = diff_train.main(base + ["--total_steps", str(steps + 1),
+                                              "--light_final_save", "true"])
+        finally:
+            diff_train.restore_into = real_restore
+        say(f"[train] check 5, resumed at step {steps}: restore (full, bit for bit) "
+            f"{restored_ok}; now at step {resumed.step}")
+        check(restored_ok == [(True, True)] and resumed.step == steps + 1,
+              f"resume failed: {restored_ok}, step {resumed.step}")
+        del resumed
+        sample_dir = os.path.join(tmp, "samples")
+        sargv = ["--model_dir", logdir, "--timestep_respacing", "ddim2", "--use_ddim", "true",
+                 "--num_samples", "1", "--out_dir", sample_dir, "--device", device.type, *flags]
+        say(f"[train] python -m humanliff_tpu_torch.cli.diff_sample {' '.join(sargv)}")
+        t0 = time.perf_counter()
+        diff_sample.main(sargv)
+        sample_s = time.perf_counter() - t0
+        samples = ckpt.load_samples_npz(os.path.join(sample_dir, "samples_person.npz"))
+        say(f"[train] sampled layer person from step {steps + 1} in {sample_s:.3f} s: "
+            f"{samples.shape}, range [{samples.min():.4f}, {samples.max():.4f}]")
+        check(np.isfinite(samples).all() and np.abs(samples).max() <= 1.0 + 1e-5,
+              "samples of the trained model are not finite in [-1, 1]")
+        rec.update(loss_rel_bf16=loss_rel, grad_rel_bf16=grad_rel, descent=losses,
+                   descent_drop=drop, sample_s=sample_s)
+        out["flagship"] = rec
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -903,13 +1282,19 @@ def main(argv=None) -> int:
         cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
                         cli_flags=("--mesh_resolution", str(CLI_MESH_RESOLUTION)))
         paths["cli"] = cli["launches"]
+    with Phase("train", cuda_sync):
+        train = phase_train(device)
+        paths["train"] = train["flagship"]["launches"]
+        check(paths["train"] == 0, f"training launched fused_decoder {paths['train']} times")
 
     say(f"summary: build {build['seconds']:.3f} s, generation "
         f"{sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x 4 layers; per layer "
         f"{', '.join(f'{s:.3f}' for s in gen['per_layer_s'])} s); 512^2 view 0, exact / "
         f"fast (grid + render): generated {dec['render_s']:.3f} / {fast['render_s']:.3f} s, "
         f"fitted {fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s; mesh "
-        f"{MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s; cli {cli['cli_s']:.3f} s; total "
+        f"{MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s; cli {cli['cli_s']:.3f} s; train "
+        f"{train['flagship']['wall_s_per_step']:.4f} s/step, peak "
+        f"{train['flagship']['peak_gb']:.3f} GB; total "
         f"{time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}")
     say(json.dumps({"kernels": [{

@@ -15,12 +15,15 @@ or across runs through ``--sample_npz``, the previous layer's
 
 Differences from the JAX CLI:
 
-- Weights come from files: ``--model_npz`` (read by
+- UNet weights come from the port's own training checkpoints
+  (``--model_dir``, ``--model_step``, ``--ema_rate``: the EMA, or the raw
+  params while the EMA still carries more than 10 % of its initialisation,
+  the JAX CLI's burn-in rule) or from ``--model_npz`` (read by
   ``compat.from_jax.load_unet_npz``: a flax params tree with ``/``-joined
   keys, as ``scripts/export_jax_weights.py`` writes from a JAX stage-2
-  checkpoint, or the port's state-dict names) and ``--decoder_npz`` (a
-  Stage-1 ``decoder_*.npz``). They replace the orbax flags ``--model_dir``,
-  ``--model_step``, ``--ema_rate`` and ``--stage1_ckpt``.
+  checkpoint, or the port's state-dict names). The decoder comes from
+  ``--decoder_npz`` (a Stage-1 ``decoder_*.npz``), not ``--stage1_ckpt``;
+  JAX orbax directories are not read.
 - Random numbers come from one seeded ``torch.Generator`` on the device, not
   from JAX key splits, so one ``--seed`` gives other samples than the JAX CLI.
   Parity with the JAX package is held function by function with injected
@@ -34,8 +37,7 @@ Differences from the JAX CLI:
 - Not accepted: ``--auto_plan``, ``--parallel_window``, ``--parallel_tol``,
   ``--view_dataset`` (only the orbit or ``--cameras_json`` views are ported),
   ``--data_root``, ``--smpl_model_path``, ``--smplx_model_dir``; the model
-  flags ``use_kl``, ``rescale_learned_sigmas`` (training only),
-  ``use_3d_aware`` and ``use_checkpoint`` (not ported). One device only.
+  flags ``use_3d_aware`` and ``use_checkpoint`` (not ported). One device only.
 """
 
 from __future__ import annotations
@@ -85,8 +87,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("humanliff_tpu_torch diff-sample")
     for k, v in model_and_diffusion_defaults().items():
         p.add_argument(f"--{k}", type=_bool if isinstance(v, bool) else type(v), default=v)
-    p.add_argument("--model_npz", type=str, required=True,
-                   help="UNet weights (EMA weights when exported from a JAX checkpoint)")
+    weights = p.add_mutually_exclusive_group(required=True)
+    weights.add_argument("--model_dir", type=str, default=None,
+                         help="a training run's checkpoint directory (diff_train --logdir)")
+    weights.add_argument("--model_npz", type=str, default=None,
+                         help="UNet weights (EMA weights when exported from a JAX checkpoint)")
+    p.add_argument("--model_step", type=int, default=None,
+                   help="--model_dir's step (default: the latest)")
+    p.add_argument("--ema_rate", type=str, default="0.9999")
     p.add_argument("--decoder_npz", type=str, default=None,
                    help="Stage-1 decoder weights (decoder_*.npz); needed by --decode")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
@@ -133,14 +141,35 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def load_train_weights(model_dir: str, step, rate: str):
+    """The UNet state dict to sample from a training checkpoint: the EMA at
+    ``rate``, or the raw params while rate^step > 0.1 (the EMA starts at the
+    random init and still carries that share of it)."""
+    restored, step = ckpt.restore_state(model_dir, step=step)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint under {model_dir}")
+    ema, rate_used = ckpt.get_ema(restored, rate)
+    init_w = float(rate_used) ** max(int(step), 0)
+    if init_w > 0.1:
+        print(f"WARNING: EMA({rate_used}) at step {step} still carries {init_w:.1%} of the "
+              "random init; sampling RAW params instead (use a faster --ema_rate for "
+              "short trainings)")
+        return ckpt.get_field(restored, "params")
+    print(f"loaded EMA({rate_used}) weights from step {step}")
+    return ema
+
+
 def _load_model(args, device):
     cfg = {k: getattr(args, k) for k in model_and_diffusion_defaults()}
     with torch.device(device):
         model, diffusion = create_model_and_diffusion(**cfg)
-    attention_ds = tuple(args.image_size // int(r)
-                         for r in args.attention_resolutions.split(","))
-    sd = load_unet_npz(args.model_npz, args.num_res_blocks, channel_mult_for(args.image_size),
-                       attention_ds)
+    if args.model_dir is not None:
+        sd = load_train_weights(args.model_dir, args.model_step, args.ema_rate)
+    else:
+        attention_ds = tuple(args.image_size // int(r)
+                             for r in args.attention_resolutions.split(","))
+        sd = load_unet_npz(args.model_npz, args.num_res_blocks,
+                           channel_mult_for(args.image_size), attention_ds)
     model.load_state_dict(sd, strict=True)
     model.eval()
     if device.type == "cuda":  # bf16 weights, channels_last: the main path's layout

@@ -1,4 +1,5 @@
-"""Convert the JAX package's parameters into this package's state dicts.
+"""Convert the JAX package's parameters and Stage-2 train state into this
+package's state dicts.
 
 Inputs are nested dicts of numpy arrays, as flax ``params`` trees come out of
 ``jax.device_get``, or flat dicts with ``/``-joined keys, as in the
@@ -190,3 +191,54 @@ def load_unet_npz(
     if nested:
         return unet_state_dict(flat, num_res_blocks, channel_mult, attention_ds)
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)) for k, v in flat.items()}
+
+
+def stage2_state_from_arrays(
+    arrays: Mapping[str, Any],
+    num_res_blocks: int = 3,
+    channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
+    attention_ds: Sequence[int] = (8, 16, 32),
+) -> Dict[str, Any]:
+    """A JAX ``Stage2State`` as flat numpy arrays -> the port's checkpoint dict
+    (``train/stage2.py::state_payload``'s layout, for ``restore_into``).
+
+    Keys, as ``scripts/export_jax_weights.py --full_state`` writes them:
+    ``step``; ``count`` (optax's AdamW update count); ``params/<flax path>``,
+    ``mu/<flax path>`` and ``nu/<flax path>`` (the Adam moments, each a
+    params-shaped tree); ``ema/<rate>/<flax path>``; and, with the
+    loss-aware sampler, ``sampler/history`` and ``sampler/counts``.
+    """
+    groups: Dict[str, Dict[str, Any]] = {}
+    for key, value in arrays.items():
+        head, _, rest = key.partition("/")
+        if rest:
+            groups.setdefault(head, {})[rest] = value
+
+    def sd(flat):
+        return unet_state_dict(flat, num_res_blocks, channel_mult, attention_ds)
+
+    ema: Dict[str, Dict[str, Any]] = {}
+    for key, value in groups.get("ema", {}).items():
+        rate, _, rest = key.partition("/")
+        ema.setdefault(rate, {})[rest] = value
+    sampler = groups.get("sampler")
+    return {
+        "step": int(arrays["step"]),
+        "params": sd(groups["params"]),
+        "ema_params": {rate: sd(flat) for rate, flat in ema.items()},
+        "opt_state": {"mu": sd(groups["mu"]), "nu": sd(groups["nu"]),
+                      "count": int(arrays["count"])},
+        "sampler_state": None if sampler is None else {
+            "history": torch.tensor(np.asarray(sampler["history"], np.float32)),
+            "counts": torch.tensor(np.asarray(sampler["counts"], np.int32)),
+        },
+    }
+
+
+def load_stage2_npz(path: str, num_res_blocks: int = 3,
+                    channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
+                    attention_ds: Sequence[int] = (8, 16, 32)) -> Dict[str, Any]:
+    """:func:`stage2_state_from_arrays` of an npz file."""
+    with np.load(path) as z:
+        return stage2_state_from_arrays({k: z[k] for k in z.files}, num_res_blocks,
+                                        channel_mult, attention_ds)

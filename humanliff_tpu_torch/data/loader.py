@@ -1,0 +1,68 @@
+"""Batch loading (port of ``humanliff_tpu/data/loader.py``).
+
+A thread pool assembles numpy batches of seeded random items while the
+device runs the current step. The JAX module's ``device_prefetch`` is not
+ported: the training CLI copies each batch to the card itself, or keeps the
+dataset there (``--device_data``).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable, Dict, Iterator
+
+import numpy as np
+
+
+class BatchLoader:
+    """Infinite batch iterator over an indexable item source.
+
+    ``item_fn(idx, rng) -> dict[str, np.ndarray]``; items are stacked along
+    axis 0. Each of ``num_workers`` threads draws item indices uniformly with
+    replacement from its own generator, seeded ``seed + 1 + worker``.
+    """
+
+    def __init__(
+        self,
+        num_items: int,
+        item_fn: Callable[[int, np.random.Generator], Dict[str, np.ndarray]],
+        batch_size: int,
+        seed: int = 0,
+        num_workers: int = 2,
+        queue_depth: int = 4,
+    ):
+        self.num_items = num_items
+        self.item_fn = item_fn
+        self.batch_size = batch_size
+        self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        self._stop = threading.Event()
+        self._threads = [
+            threading.Thread(target=self._worker, args=(seed + 1 + w,), daemon=True)
+            for w in range(max(1, num_workers))
+        ]
+        for t in self._threads:
+            t.start()
+
+    def _worker(self, seed: int):
+        rng = np.random.default_rng(seed)
+        while not self._stop.is_set():
+            idxs = rng.integers(0, self.num_items, self.batch_size)
+            items = [self.item_fn(int(i), rng) for i in idxs]
+            batch = {k: np.stack([it[k] for it in items], axis=0) for k in items[0]}
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=1.0)
+                    break
+                except queue.Full:
+                    continue
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self._q.get()
+
+    def close(self, timeout: float = 5.0):
+        """Stop the workers and wait for them."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout)

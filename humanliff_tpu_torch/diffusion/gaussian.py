@@ -15,31 +15,53 @@ progressive forms) draw from a ``torch.Generator``, or take the initial noise
 and a per-step noise source from the caller, which is how the tests feed both
 packages the same noise. A DDIM step draws its noise at any ``eta``, as JAX
 splits a key for it, so one noise source serves every loop.
+
+Training (``training_losses``, gaussian_diffusion.py:688-772) takes its
+noise from the caller or from a ``torch.Generator``, for the same reason.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from humanliff_tpu_torch.diffusion.losses import (
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+)
 
 ModelFn = Callable[..., torch.Tensor]
 StepNoise = Union[Sequence[torch.Tensor], Callable[[int], torch.Tensor]]
 
 
 class ModelMeanType(enum.Enum):
-    """What the model predicts (``create_diffusion`` makes these two)."""
+    """What the model predicts."""
 
+    PREVIOUS_X = enum.auto()
     START_X = enum.auto()
     EPSILON = enum.auto()
 
 
 class ModelVarType(enum.Enum):
+    LEARNED = enum.auto()
     FIXED_SMALL = enum.auto()
     FIXED_LARGE = enum.auto()
     LEARNED_RANGE = enum.auto()
+
+
+class LossType(enum.Enum):
+    MSE = enum.auto()
+    RESCALED_MSE = enum.auto()  # MSE, plus the vb term scaled by T / 1000 (learned sigma)
+    KL = enum.auto()
+    RESCALED_KL = enum.auto()
+
+    def is_vb(self) -> bool:
+        return self in (LossType.KL, LossType.RESCALED_KL)
 
 
 class GaussianDiffusion:
@@ -48,6 +70,7 @@ class GaussianDiffusion:
         betas: np.ndarray,
         model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
         model_var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+        loss_type: LossType = LossType.MSE,
         rescale_timesteps: bool = True,
         timestep_map: Optional[np.ndarray] = None,
         original_num_steps: Optional[int] = None,
@@ -58,6 +81,7 @@ class GaussianDiffusion:
         self.betas = betas
         self.model_mean_type = model_mean_type
         self.model_var_type = model_var_type
+        self.loss_type = loss_type
         self.rescale_timesteps = rescale_timesteps
         self.timestep_map = timestep_map
         self.original_num_steps = original_num_steps
@@ -68,6 +92,10 @@ class GaussianDiffusion:
         ac_prev = np.append(1.0, ac[:-1])
         self.alphas_cumprod = ac
         self.alphas_cumprod_prev = ac_prev
+        self.sqrt_alphas_cumprod = np.sqrt(ac)
+        self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - ac)
+        self.one_minus_alphas_cumprod = 1.0 - ac
+        self.log_one_minus_alphas_cumprod = np.log(1.0 - ac)
         with np.errstate(divide="ignore"):  # beta_T == 1 in tiny-T schedules
             self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / ac)
             self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / ac - 1)
@@ -76,6 +104,8 @@ class GaussianDiffusion:
         self.posterior_log_variance_clipped = np.log(np.append(pv[1], pv[1:]))
         self.posterior_mean_coef1 = betas * np.sqrt(ac_prev) / (1.0 - ac)
         self.posterior_mean_coef2 = (1.0 - ac_prev) * np.sqrt(alphas) / (1.0 - ac)
+        self.recip_posterior_mean_coef1 = 1.0 / self.posterior_mean_coef1
+        self.posterior_mean_coef_ratio = self.posterior_mean_coef2 / self.posterior_mean_coef1
         self.fixed_large_variance = np.append(pv[1], betas[1:])
         self.fixed_large_log_variance = np.log(self.fixed_large_variance)
         self._device_tables: Dict[Any, Dict[str, torch.Tensor]] = {}
@@ -93,6 +123,19 @@ class GaussianDiffusion:
     def _extract(self, name: str, t: torch.Tensor, ndim: int) -> torch.Tensor:
         out = self._table(name, t.device)[t]
         return out.reshape(t.shape[0], *([1] * (ndim - 1)))
+
+    # ---------------- forward process ----------------
+
+    def q_mean_variance(self, x_start, t):
+        mean = self._extract("sqrt_alphas_cumprod", t, x_start.dim()) * x_start
+        variance = self._extract("one_minus_alphas_cumprod", t, x_start.dim())
+        log_variance = self._extract("log_one_minus_alphas_cumprod", t, x_start.dim())
+        return mean, variance, log_variance
+
+    def q_sample(self, x_start, t, noise):
+        """Diffuse x_start for t steps (gaussian_diffusion.py:188-207)."""
+        return (self._extract("sqrt_alphas_cumprod", t, x_start.dim()) * x_start
+                + self._extract("sqrt_one_minus_alphas_cumprod", t, x_start.dim()) * noise)
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         mean = (self._extract("posterior_mean_coef1", t, x_t.dim()) * x_start
@@ -116,6 +159,14 @@ class GaussianDiffusion:
         return (self._extract("sqrt_recip_alphas_cumprod", t, x_t.dim()) * x_t
                 - self._extract("sqrt_recipm1_alphas_cumprod", t, x_t.dim()) * eps)
 
+    def _predict_xstart_from_xprev(self, x_t, t, xprev):
+        return (self._extract("recip_posterior_mean_coef1", t, x_t.dim()) * xprev
+                - self._extract("posterior_mean_coef_ratio", t, x_t.dim()) * x_t)
+
+    def _predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        return ((self._extract("sqrt_recip_alphas_cumprod", t, x_t.dim()) * x_t - pred_xstart)
+                / self._extract("sqrt_recipm1_alphas_cumprod", t, x_t.dim()))
+
     def p_mean_variance(
         self,
         model_fn: ModelFn,
@@ -129,7 +180,10 @@ class GaussianDiffusion:
         model_kwargs = model_kwargs or {}
         model_output = model_fn(x, self.scale_timesteps(t), x_cond, **model_kwargs)
 
-        if self.model_var_type == ModelVarType.LEARNED_RANGE:
+        if self.model_var_type == ModelVarType.LEARNED:
+            model_output, model_log_variance = torch.chunk(model_output, 2, dim=-1)
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.LEARNED_RANGE:
             model_output, var_values = torch.chunk(model_output, 2, dim=-1)
             min_log = self._extract("posterior_log_variance_clipped", t, x.dim())
             max_log = self._extract("log_betas", t, x.dim())
@@ -147,11 +201,15 @@ class GaussianDiffusion:
         def process_xstart(xs):
             return xs.clamp(-1, 1) if clip_denoised else xs
 
-        if self.model_mean_type == ModelMeanType.START_X:
-            pred_xstart = process_xstart(model_output)
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            pred_xstart = process_xstart(self._predict_xstart_from_xprev(x, t, model_output))
+            model_mean = model_output
         else:
-            pred_xstart = process_xstart(self._predict_xstart_from_eps(x, t, model_output))
-        model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+            if self.model_mean_type == ModelMeanType.START_X:
+                pred_xstart = process_xstart(model_output)
+            else:
+                pred_xstart = process_xstart(self._predict_xstart_from_eps(x, t, model_output))
+            model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
 
         return {"mean": model_mean, "variance": model_variance,
                 "log_variance": model_log_variance, "pred_xstart": pred_xstart}
@@ -170,8 +228,7 @@ class GaussianDiffusion:
         """One DDIM step (gaussian_diffusion.py:488-529); ``eta`` scales the
         standard-normal ``noise``, and eta = 0 is the deterministic sampler."""
         out = self.p_mean_variance(model_fn, x, t, x_cond, clip_denoised, model_kwargs)
-        eps = ((self._extract("sqrt_recip_alphas_cumprod", t, x.dim()) * x - out["pred_xstart"])
-               / self._extract("sqrt_recipm1_alphas_cumprod", t, x.dim()))
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
         alpha_bar = self._extract("alphas_cumprod", t, x.dim())
         alpha_bar_prev = self._extract("alphas_cumprod_prev", t, x.dim())
         sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
@@ -267,3 +324,60 @@ class GaussianDiffusion:
                                                      model_kwargs, device):
             pass
         return out["sample"]
+
+    # ---------------- losses ----------------
+
+    def _vb_terms_bpd(self, model_fn, x_start, x_t, t, x_cond=None, clip_denoised=True,
+                      model_kwargs=None):
+        """The variational bound term in bits per dim: KL(q(x_{t-1}|x_t, x_0) ||
+        p(x_{t-1}|x_t)), or the decoder NLL at t = 0 (gaussian_diffusion.py:654-686)."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, x_cond, clip_denoised, model_kwargs)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = mean_flat(kl) / math.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"])
+        decoder_nll = mean_flat(decoder_nll) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(self, model_fn: ModelFn, x_start, x_cond, t,
+                        model_kwargs: Optional[Dict[str, Any]] = None,
+                        noise: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Per-example training losses (gaussian_diffusion.py:688-772): ``{"loss"}``,
+        plus ``"mse"`` and, for a learned sigma, ``"vb"`` (its mean half detached).
+        ``noise`` missing is drawn from ``generator``."""
+        model_kwargs = model_kwargs or {}
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                                dtype=x_start.dtype)
+        x_t = self.q_sample(x_start, t, noise)
+
+        terms: Dict[str, torch.Tensor] = {}
+        if self.loss_type.is_vb():
+            terms["loss"] = self._vb_terms_bpd(model_fn, x_start, x_t, t, x_cond, False,
+                                               model_kwargs)["output"]
+            if self.loss_type == LossType.RESCALED_KL:
+                terms["loss"] = terms["loss"] * self.num_timesteps
+            return terms
+
+        model_output = model_fn(x_t, self.scale_timesteps(t), x_cond, **model_kwargs)
+        if self.model_var_type in (ModelVarType.LEARNED, ModelVarType.LEARNED_RANGE):
+            model_output, var_values = torch.chunk(model_output, 2, dim=-1)
+            # The vb term trains the variance only: the mean half is frozen.
+            frozen = torch.cat([model_output.detach(), var_values], dim=-1)
+            terms["vb"] = self._vb_terms_bpd(lambda *a, **k: frozen, x_start, x_t, t, x_cond,
+                                             False)["output"]
+            if self.loss_type == LossType.RESCALED_MSE:
+                terms["vb"] = terms["vb"] * (self.num_timesteps / 1000.0)
+
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
+        terms["mse"] = mean_flat((target - model_output) ** 2)
+        terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
+        return terms

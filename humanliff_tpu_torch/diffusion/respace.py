@@ -14,6 +14,7 @@ import numpy as np
 
 from humanliff_tpu_torch.diffusion.gaussian import (
     GaussianDiffusion,
+    LossType,
     ModelMeanType,
     ModelVarType,
 )
@@ -57,6 +58,7 @@ def spaced_diffusion(
     use_timesteps: Collection[int],
     model_mean_type: ModelMeanType = ModelMeanType.EPSILON,
     model_var_type: ModelVarType = ModelVarType.FIXED_LARGE,
+    loss_type: LossType = LossType.MSE,
     rescale_timesteps: bool = True,
 ) -> GaussianDiffusion:
     """A GaussianDiffusion over the retained subset (respace.py:63-107)."""
@@ -73,6 +75,7 @@ def spaced_diffusion(
         betas=np.array(new_betas, np.float64),
         model_mean_type=model_mean_type,
         model_var_type=model_var_type,
+        loss_type=loss_type,
         rescale_timesteps=rescale_timesteps,
         timestep_map=np.array(timestep_map, np.int64),
         original_num_steps=len(betas),
@@ -85,12 +88,20 @@ def create_diffusion(
     learn_sigma: bool = False,
     sigma_small: bool = False,
     noise_schedule: str = "linear",
+    use_kl: bool = False,
     predict_xstart: bool = False,
     rescale_timesteps: bool = True,
+    rescale_learned_sigmas: bool = True,
     timestep_respacing: str = "",
 ) -> GaussianDiffusion:
-    """Factory mirroring script_util.create_gaussian_diffusion (sampling settings)."""
+    """Factory mirroring script_util.create_gaussian_diffusion (script_util.py:260-298)."""
     betas = get_named_beta_schedule(noise_schedule, steps)
+    if use_kl:
+        loss_type = LossType.RESCALED_KL
+    elif rescale_learned_sigmas:
+        loss_type = LossType.RESCALED_MSE
+    else:
+        loss_type = LossType.MSE
     if learn_sigma:
         var_type = ModelVarType.LEARNED_RANGE
     else:
@@ -100,5 +111,6 @@ def create_diffusion(
         use_timesteps=space_timesteps(steps, timestep_respacing or str(steps)),
         model_mean_type=ModelMeanType.START_X if predict_xstart else ModelMeanType.EPSILON,
         model_var_type=var_type,
+        loss_type=loss_type,
         rescale_timesteps=rescale_timesteps,
     )

@@ -28,8 +28,10 @@ def model_and_diffusion_defaults() -> dict:
         diffusion_steps=1000,
         noise_schedule="linear",
         timestep_respacing="",
+        use_kl=False,
         predict_xstart=False,
         rescale_timesteps=True,
+        rescale_learned_sigmas=True,
         use_scale_shift_norm=True,
         cond_type="controlnet",
     )
@@ -105,8 +107,10 @@ def create_model_and_diffusion(**kwargs) -> Tuple[UNetModel, GaussianDiffusion]:
         learn_sigma=cfg["learn_sigma"],
         sigma_small=cfg["sigma_small"],
         noise_schedule=cfg["noise_schedule"],
+        use_kl=cfg["use_kl"],
         predict_xstart=cfg["predict_xstart"],
         rescale_timesteps=cfg["rescale_timesteps"],
+        rescale_learned_sigmas=cfg["rescale_learned_sigmas"],
         timestep_respacing=cfg["timestep_respacing"],
     )
     return model, diffusion

@@ -1,0 +1,267 @@
+"""Stage-2 diffusion training (port of ``humanliff_tpu/train/stage2.py``;
+reference improved_diffusion/train_util.py).
+
+One step draws timesteps (uniform or loss-aware), diffuses the batch, runs the
+UNet forward and backward microbatch by microbatch, accumulating gradients,
+then applies the clipped AdamW (``train/optim.py``), the EMA per rate and the
+loss-aware sampler's update. Nothing comes to the host: the metrics are 0-d
+tensors on the step's device.
+
+Layout: the batch is NHWC, as in the JAX package and the port's sampling; the
+UNet sees NCHW views of it, which are channels_last in memory, so no copy is
+made. Parameters, gradients, Adam moments and each EMA are one flat fp32
+buffer each (:class:`ParamLayout`); the model's parameters and their ``.grad``
+are views into the first two, so the optimizer and the EMA are a few passes
+over a buffer, and autograd accumulates microbatch gradients into it in place.
+4-d conv weights are channels_last views.
+
+Mixed precision: ``use_bf16`` runs the forward under bf16 autocast with fp32
+master weights; GroupNorm and the diffusion arithmetic stay fp32.
+
+Dropout: the JAX step runs the UNet with ``deterministic=True``, so dropout is
+off in training whatever ``--dropout`` says; the port matches it by running
+the UNet in eval mode (the reference trains with dropout on).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from humanliff_tpu_torch.diffusion.resample import LossSecondMomentResampler, UniformSampler
+from humanliff_tpu_torch.train.optim import OptState, Stage2Optimizer
+
+StateDict = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage2Config:
+    lr: float = 5e-5
+    weight_decay: float = 0.0
+    lr_anneal_steps: int = 0
+    ema_rates: Tuple[float, ...] = (0.9999,)
+    microbatch: int = 0  # 0 = no accumulation
+    grad_clip_value: float = 0.5
+    grad_clip_norm: float = 1.0  # 0 disables
+    use_bf16: bool = False
+    schedule_sampler: str = "uniform"
+    class_cond: bool = True
+
+    def optimizer(self) -> Stage2Optimizer:
+        return Stage2Optimizer(lr=self.lr, weight_decay=self.weight_decay,
+                               anneal_steps=self.lr_anneal_steps,
+                               grad_clip_value=self.grad_clip_value,
+                               grad_clip_norm=self.grad_clip_norm)
+
+
+class ParamLayout:
+    """Where each parameter of a model lives in one flat fp32 buffer: in
+    ``named_parameters`` order, each 4-d tensor stored (O, kh, kw, I), so its
+    (O, I, kh, kw) view is channels_last."""
+
+    def __init__(self, model: nn.Module):
+        self.entries = []
+        offset = 0
+        for name, p in model.named_parameters():
+            self.entries.append((name, tuple(p.shape), offset))
+            offset += p.numel()
+        self.numel = offset
+
+    def views(self, flat: torch.Tensor) -> StateDict:
+        out = {}
+        for name, shape, off in self.entries:
+            part = flat[off:off + math.prod(shape)]
+            if len(shape) == 4:
+                o, i, kh, kw = shape
+                out[name] = part.view(o, kh, kw, i).permute(0, 3, 1, 2)
+            else:
+                out[name] = part.view(shape)
+        return out
+
+    def flatten(self, state_dict, device) -> torch.Tensor:
+        """A new flat buffer on ``device`` holding ``state_dict``'s tensors."""
+        flat = torch.empty(self.numel, device=device)
+        views = self.views(flat)
+        missing = set(views) ^ set(state_dict)
+        if missing:
+            raise KeyError(f"state dict does not match the model: {sorted(missing)[:5]}")
+        for name, v in views.items():
+            v.copy_(state_dict[name])
+        return flat
+
+
+@dataclasses.dataclass
+class Stage2State:
+    """The train state. ``params`` and ``grads`` are the storage of the
+    model's parameters and gradients; ``ema_params`` is keyed by str(rate).
+    ``opt_state["count"]`` counts optimizer updates: it restarts at 0 when a
+    light checkpoint (no moments) is resumed, while ``step`` does not."""
+
+    step: int
+    params: torch.Tensor
+    grads: torch.Tensor
+    opt_state: OptState
+    ema_params: Dict[str, torch.Tensor]
+    sampler_state: Optional[Dict[str, torch.Tensor]]
+    layout: ParamLayout
+
+
+def create_stage2_state(model: nn.Module, cfg: Stage2Config, num_timesteps: int) -> Stage2State:
+    """A fresh state from the model's current weights, on the model's device;
+    the model's parameters become views of ``state.params``."""
+    device = next(model.parameters()).device
+    layout = ParamLayout(model)
+    params = layout.flatten({n: p.detach() for n, p in model.named_parameters()}, device)
+    grads = torch.zeros_like(params)
+    p_views, g_views = layout.views(params), layout.views(grads)
+    for name, p in model.named_parameters():
+        p.data, p.grad = p_views[name], g_views[name]
+    sampler_state = None
+    if cfg.schedule_sampler == "loss-second-moment":
+        sampler_state = LossSecondMomentResampler(num_timesteps).init_state(device)
+    elif cfg.schedule_sampler != "uniform":
+        raise NotImplementedError(f"unknown schedule sampler: {cfg.schedule_sampler}")
+    return Stage2State(
+        step=0, params=params, grads=grads, opt_state=cfg.optimizer().init(params),
+        ema_params={str(r): params.clone() for r in cfg.ema_rates},
+        sampler_state=sampler_state, layout=layout,
+    )
+
+
+def state_payload(state: Stage2State, light: bool = False) -> Dict:
+    """The checkpoint of ``state``: step, params and EMA as state dicts, and
+    unless ``light`` the optimizer (moments as state dicts, count) and the
+    sampler state. Values are views of the state's buffers, so a save writes
+    each buffer once."""
+    views = state.layout.views
+    payload = {"step": state.step, "params": views(state.params),
+               "ema_params": {r: views(e) for r, e in state.ema_params.items()}}
+    if not light:
+        payload["opt_state"] = {"mu": views(state.opt_state["mu"]),
+                                "nu": views(state.opt_state["nu"]),
+                                "count": int(state.opt_state["count"])}
+        payload["sampler_state"] = state.sampler_state
+    return payload
+
+
+def restore_into(state: Stage2State, restored: Dict) -> bool:
+    """Load a checkpoint (:func:`state_payload`'s dict) into ``state`` in
+    place, the model's parameters with it. A light checkpoint leaves the
+    optimizer and the sampler as they are (fresh). Returns whether it was a
+    full one."""
+    device = state.params.device
+    state.step = int(restored["step"])
+    for name, v in state.layout.views(state.params).items():
+        v.copy_(restored["params"][name])
+    state.ema_params = {r: state.layout.flatten(e, device)
+                        for r, e in restored["ema_params"].items()}
+    if "opt_state" not in restored:
+        return False
+    opt = restored["opt_state"]
+    for key in ("mu", "nu"):
+        for name, v in state.layout.views(state.opt_state[key]).items():
+            v.copy_(opt[key][name])
+    state.opt_state["count"] = int(opt["count"])
+    sampler = restored.get("sampler_state")
+    state.sampler_state = (None if sampler is None
+                           else {k: v.to(device) for k, v in sampler.items()})
+    return True
+
+
+def gather_batch(planes: torch.Tensor, idx: torch.Tensor, y: torch.Tensor):
+    """The device-resident batch: ``planes`` (N*L, H, W, C) of N subjects' L
+    layers, ``idx`` flat (subject, layer) indices and ``y = idx % L``; x_cond
+    is the previous layer of the same subject, zero at layer 0."""
+    x = planes.index_select(0, idx)
+    has_prev = y > 0
+    prev = planes.index_select(0, idx - has_prev.to(idx.dtype))
+    return x, prev * has_prev.to(prev.dtype)[:, None, None, None]
+
+
+def model_fn_for(model: nn.Module):
+    """NHWC in, fp32 NHWC out: the diffusion's view of the NCHW UNet."""
+
+    def fn(x, ts, x_cond, y=None):
+        out = model(x.permute(0, 3, 1, 2), ts, x_cond.permute(0, 3, 1, 2), y)
+        return out.permute(0, 2, 3, 1).float()
+
+    return fn
+
+
+def train_step(
+    state: Stage2State,
+    model: nn.Module,
+    diffusion: GaussianDiffusion,
+    cfg: Stage2Config,
+    batch: Dict[str, torch.Tensor],
+    t: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """One optimization step on ``state`` (updated in place); returns the metrics.
+
+    ``batch`` is materialised, ``{"x", "x_cond", "y"}`` with x and x_cond
+    (B, H, W, C), or device-resident, ``{"planes", "idx", "y"}``
+    (:func:`gather_batch`). ``t`` (B,) and ``noise`` (B, H, W, C) may be given;
+    whatever is missing is drawn from ``generator``.
+    """
+    model.eval()  # dropout off, as the JAX step's deterministic=True
+    if "planes" in batch:
+        x, x_cond = gather_batch(batch["planes"], batch["idx"], batch["y"])
+    else:
+        x, x_cond = batch["x"], batch["x_cond"]
+    y = batch["y"]
+    B, device, T = x.shape[0], x.device, diffusion.num_timesteps
+
+    lsm = LossSecondMomentResampler(T) if cfg.schedule_sampler == "loss-second-moment" else None
+    if t is None:
+        if lsm is not None:
+            t, weights = lsm.sample(state.sampler_state, B, generator)
+        else:
+            t, weights = UniformSampler(T).sample(B, device, generator)
+    elif lsm is not None:
+        weights = 1.0 / (T * lsm._weights(state.sampler_state)[t])
+    else:
+        weights = torch.ones(B, device=device)
+    if noise is None:
+        noise = torch.randn(x.shape, generator=generator, device=device)
+
+    mb = cfg.microbatch if 0 < cfg.microbatch < B else B
+    if B % mb:
+        raise ValueError(f"microbatch {mb} does not divide batch {B}")
+    model_fn = model_fn_for(model)
+    state.grads.zero_()
+    loss = torch.zeros((), device=device)
+    per_ex = []
+    for s in range(0, B, mb):
+        sl = slice(s, s + mb)
+        kwargs = {"y": y[sl]} if cfg.class_cond else {}
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=cfg.use_bf16):
+            losses = diffusion.training_losses(model_fn, x[sl], x_cond[sl], t[sl],
+                                               model_kwargs=kwargs, noise=noise[sl])["loss"]
+        # Each microbatch's sum over B: the microbatches add up to the batch mean.
+        micro = (losses * weights[sl]).sum() / B
+        micro.backward()
+        loss += micro.detach()
+        per_ex.append(losses.detach())
+    per_ex_losses = torch.cat(per_ex)
+
+    grad_norm = torch.linalg.vector_norm(state.grads)  # of the raw gradients
+    state.opt_state = cfg.optimizer().step_(state.params, state.grads, state.opt_state)
+    for rate, ema in state.ema_params.items():
+        ema.mul_(float(rate)).add_(state.params, alpha=1.0 - float(rate))
+    if lsm is not None:
+        state.sampler_state = lsm.update(state.sampler_state, t, per_ex_losses)
+    state.step += 1
+
+    metrics = {"loss": loss, "mse": per_ex_losses.mean(), "grad_norm": grad_norm}
+    for q in range(4):  # loss by quarter of diffusion time (train_util.py:391-397)
+        in_q = (t >= q * T // 4) & (t < (q + 1) * T // 4)
+        metrics[f"loss_q{q}"] = (torch.where(in_q, per_ex_losses, 0.0).sum()
+                                 / in_q.sum().clamp(min=1))
+    return metrics

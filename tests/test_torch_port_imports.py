@@ -41,6 +41,14 @@ def test_no_forbidden_import_statement(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_training_modules_are_checked():
+    files = set(_port_files())
+    for module in ("cli/diff_train.py", "train/stage2.py", "train/optim.py",
+                   "train/checkpoint.py", "diffusion/losses.py", "diffusion/resample.py",
+                   "data/triplane_data.py", "data/loader.py", "utils/logger.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]
