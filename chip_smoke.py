@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``humanliff_tpu_torch``) once on one NVIDIA H100.
 
-    python3 chip_smoke.py [--steps 250] [--cli_steps ddim50]
+    python3 chip_smoke.py [--steps 250] [--cli_steps ddim50] [--phases build,kernel,...]
 
 The main path is flagship inference, what ``bench.py`` times for the JAX
 package: four chained layers of the ControlNet UNet at full width
@@ -23,7 +23,9 @@ Phases, each printed with its seconds and failed past its budget:
               sampled from fitted planes), M = 2^20 and 1,000,003, fp32 and
               bf16 inputs, full and density-only, and every shape the main
               path launches (a render chunk's passes, the grid build, a mesh
-              tile); CUDA-event times beside the bound (decoder_bound_ms)  120 s
+              tile, a Stage-1 step's coarse and fine pass); CUDA-event times
+              beside the bound (decoder_bound_ms), and the backward of a
+              Stage-1 fine pass (the plain recompute)                      120 s
     generate  the 4-layer chain; one bf16 UNet forward is first held
               against the fp32 forward                                    420 s
     decode    view 0 of the last generated layer and of the fitted
@@ -46,11 +48,27 @@ Phases, each printed with its seconds and failed past its budget:
               batch; one step's loss and gradients in bf16 against fp32;
               the CLI resumed for a 21st step (the restore checked bit for
               bit), then diff_sample --model_dir on its checkpoint        300 s
+    recon     Stage-1 reconstruction (humanliff_tpu_torch.cli.recon_train,
+              recon_ft, recon_test), seven checks: one deterministic step
+              at D 32 on the card against the CPU; 20 steps of recon_train
+              --config configs/SynBody.txt on the synthetic bodies at image
+              128 (100 instances, D 256, batch 2 x 2,048 rays, 128 + 128
+              samples) with s/step, device ms/step, busy share, loader wait,
+              peak memory and the save; descent on a fixed batch; after each
+              of its steps the kernel against decoder_plain of the updated
+              weights (the packed-weight cache); recon_ft of one subject from
+              the saved state (the decoder bit for bit, the export packed
+              for Stage 2); eval of the committed fitted pair against the
+              JAX package's numbers (scripts/stage1_jax_reference.py), view
+              by view, and the pair's loss; recon_test                    240 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
-mesh, the CLI, training) and read just after it; training renders nothing
-and must launch the decoder kernel 0 times. The last three lines are a
+mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
+recon_test) and read just after it; Stage-2 training renders nothing and
+must launch the decoder kernel 0 times, a Stage-1 step exactly twice (the
+coarse and the fine pass). ``--phases`` runs a subset (build and kernel
+always run). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
 budget exits non-zero before the result. Without CUDA, or run outside a
@@ -76,14 +94,21 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DECODER_NPZ = os.path.join(REPO, "runs", "quality", "train", "decoder_060000.npz")
 PLANES_NPZ = os.path.join(REPO, "runs", "quality", "stage2", "planes",
                           "campaign0000_060000.npz")
+# The Stage-1 campaign's second subject, and the JAX package's numbers for the
+# fitted pair (scripts/stage1_jax_reference.py, on the CPU).
+PLANES_NPZ_1 = os.path.join(REPO, "runs", "quality", "stage2", "planes",
+                            "campaign0001_060000.npz")
+STAGE1_REFERENCE = os.path.join(REPO, "runs", "quality", "stage1_jax_reference.json")
+SYNBODY_CONFIG = os.path.join(REPO, "configs", "SynBody.txt")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
-            "cli": 360, "train": 300}
+            "cli": 360, "train": 300, "recon": 240}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
 MESH_RESOLUTION = 512  # the CLI's --mesh_resolution default
 MESH_CHUNK = 1 << 22  # points per decoder call of eval_density_grid
+STAGE1_FINE_POINTS = 2 * 2048 * 256  # a Stage-1 step's fine pass: batch 2 x n_rand x 256
 # The seeded random UNet's samples give a noisy density field: at 512^3 their
 # mesh had 61.5 M triangles (a 1.2 GB PLY), so the CLI phase meshes at 128^3;
 # the 512^3 mesh is the mesh phase's, of fitted planes.
@@ -115,6 +140,27 @@ DESCENT_MIN_DROP = 0.0038
 # relative L2, about 10x and 6x what an H100 (700 W) measured: 5.36e-5 and
 # 5.11e-3.
 BF16_LOSS_REL, BF16_GRAD_REL = 5e-4, 3e-2
+
+# Stage 1 (the recon phase). Check 1, one deterministic step at D 32 on the
+# card (the kernel's forward, 3xTF32) and on the CPU (the plain decoder):
+# metrics rtol RECON_SMALL_METRIC_REL, each group's first moment relative L2
+# RECON_SMALL_MOMENT_REL; parameters within RECON_STEP_APART x lr where the
+# gradient is at least RECON_NEAR_ZERO_GRAD (100 x Adam's eps; below it
+# Adam's step reads the gradient's last bits, and both sides may step up to 2
+# lr apart: tests/test_torch_stage1.py). The bars are about 10x what an H100
+# (700 W) read: metrics 1.65e-7, moments 1.94e-5 (planes) and 9.5e-6
+# (decoder), parameters 2.4e-5 lr (decoder; planes 3.9e-6 lr).
+RECON_SMALL_METRIC_REL, RECON_SMALL_MOMENT_REL = 2e-6, 2e-4
+RECON_NEAR_ZERO_GRAD, RECON_STEP_APART = 1e-6, 3e-4
+# Check 3: 10 deterministic steps on one fixed batch at the full width must
+# lower the loss by this share of its first value: half of the 16.00 % an
+# H100 read (the CPU rehearsal at D 32: 57.9 %).
+RECON_DESCENT_MIN_DROP = 0.08
+# Check 6, against the JAX package on the CPU (STAGE1_REFERENCE): each
+# held-out view's PSNR within RECON_EVAL_PSNR_DB (an H100 read at most
+# 0.00595 dB), the pair's loss on the reference batch within RECON_LOSS_REL
+# (read 4.7e-5).
+RECON_EVAL_PSNR_DB, RECON_LOSS_REL = 0.1, 5e-4
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
 # tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
@@ -288,9 +334,10 @@ def phase_build() -> dict:
 def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
                  main_fine_points=RENDER_CHUNK * 256,
                  grid_points=(GRID_RESOLUTION + 1) ** 3, mesh_points=MESH_CHUNK,
-                 reps=10) -> dict:
+                 stage1_fine_points=STAGE1_FINE_POINTS, reps=10) -> dict:
     """Hold the kernel against decoder_plain and time both, at the sizes given
-    and at every shape the main path launches."""
+    and at every shape the main path launches; and time the backward of a
+    Stage-1 fine pass (the plain recompute and its gradients)."""
     import torch
     import torch.nn.functional as F
 
@@ -318,8 +365,13 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
                    (main_fine_points // 2, "bfloat16", False),
                    (grid_points, "bfloat16", False),
                    (mesh_points, "float32", False)]
-    checks = [(M, dt, full) for M in sizes for dt in ("float32", "bfloat16")
-              for full in (True, False)] + main_shapes
+    # A Stage-1 training step (batch 2 x 2,048 rays): the coarse pass, density
+    # only, and the fine pass, full, both fp32.
+    stage1_shapes = [(stage1_fine_points // 2, "float32", False),
+                     (stage1_fine_points, "float32", True)]
+    main_shapes += [shape for shape in stage1_shapes if shape not in main_shapes]
+    checks = list(dict.fromkeys([(M, dt, full) for M in sizes for dt in ("float32", "bfloat16")
+                                 for full in (True, False)] + main_shapes))
     max_err = 0.0
     with torch.no_grad():
         for M, dtype, full in checks:
@@ -347,8 +399,9 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
             del feats, dirs, ref_rgb, ref_alpha, rgb, alpha
 
         timings = {}
-        shapes = [(M, dt, full) for M in time_sizes for dt in ("float32", "bfloat16")
-                  for full in (True, False)] + main_shapes
+        shapes = list(dict.fromkeys([(M, dt, full) for M in time_sizes
+                                     for dt in ("float32", "bfloat16")
+                                     for full in (True, False)] + main_shapes))
         for M, dtype, full in shapes:
             feats, dirs = inputs(M, getattr(torch, dtype))
             d = dirs if full else None
@@ -362,12 +415,29 @@ def phase_kernel(device, sizes=(1 << 20, 1_000_003), time_sizes=(1 << 20,),
                 f"kernel/bound {k_ms / b['ms']:.2f}x; one-pass basis {b['ms_one_pass']:.4f} ms, "
                 f"kernel/bound {k_ms / b['ms_one_pass']:.1f}x")
             del feats, dirs
+        # The fine pass's backward in training: _FusedDecoderFn.backward's
+        # work, the plain decoder again and the gradients of its inputs and
+        # weights.
+        feats, dirs = inputs(stage1_fine_points, torch.float32)
+        grads = (torch.randn(stage1_fine_points, 3, generator=gen, device=device),
+                 torch.randn(stage1_fine_points, 1, generator=gen, device=device))
+
+        def backward():
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_(True) for t in (feats, *w)]
+                outs = decoder_plain(leaves[1:], leaves[0], dirs)
+                torch.autograd.grad(outs, leaves, grads)
+
+        bwd_ms = cuda_ms(backward, reps)
+        say(f"[kernel] time the backward of a Stage-1 fine pass (M={stage1_fine_points} fp32, "
+            f"the plain recompute and its gradients): {bwd_ms:.4f} ms")
+        del feats, dirs, grads
     k_ms, p_ms, b = timings[(main_fine_points, "bfloat16", True)]
     shapes = [{"M": M, "dtype": dt, "variant": "full" if full else "density",
                "ms": timings[(M, dt, full)][0], "plain_ms": timings[(M, dt, full)][1],
                "bound_ms": timings[(M, dt, full)][2]["ms"]} for M, dt, full in main_shapes]
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound": b,
-            "main_shapes": shapes}
+            "main_shapes": shapes, "stage1_backward_ms": bwd_ms}
 
 
 def seed_weights(model, seed: int) -> None:
@@ -1213,6 +1283,379 @@ def phase_train(device, model_kwargs=None, planes=None, steps=20, batch_size=8,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# Stage 1: recon_train, recon_ft, recon_test and the eval harness
+# --------------------------------------------------------------------------
+
+
+def stage1_fixture_planes(n: int, layers: int, D: int, seed: int = 0) -> np.ndarray:
+    """(n, layers, 3, 9, D, D): noise plus a central blob, so that rays meet
+    density (the planes of tests/torch_stage1_util.py)."""
+    rng = np.random.default_rng(seed)
+    g = (np.arange(D) + 0.5) / D * 2 - 1
+    u, v = np.meshgrid(g, g, indexing="xy")
+    blob = np.exp(-3.0 * (u ** 2 + v ** 2))
+    return (0.3 * rng.normal(size=(n, layers, 3, 9, D, D)) + 0.8 * blob).astype(np.float32)
+
+
+def stage1_batch(ds, items, device) -> dict:
+    """A batch of ``ds.item(index, default_rng(seed))`` for (index, seed) in
+    ``items``, on ``device`` (``recon_train.to_device``)."""
+    from humanliff_tpu_torch.cli.recon_train import to_device
+
+    its = [ds.item(int(i), np.random.default_rng(int(s))) for i, s in items]
+    return to_device({k: np.stack([it[k] for it in its]) for k in its[0]}, device)
+
+
+def near_zero_apart(got, want, grad, lr: float, label: str) -> dict:
+    """One Adam step's parameters on two devices. An element whose gradient
+    is under RECON_NEAR_ZERO_GRAD (100 x Adam's eps) steps by lr x g / (|g| +
+    eps), whose size reads the gradient's last bits: it may sit up to 2 lr
+    apart. Every other element within RECON_STEP_APART x lr, but for at most
+    1e-4 of them (a gradient near 0 that takes the other sign), within 2 lr."""
+    d = (got.detach().double().cpu() - want.detach().double().cpu()).abs()
+    near = grad.detach().cpu().abs() < RECON_NEAR_ZERO_GRAD
+    check(float(d.max()) <= 2 * lr + 1e-7, f"{label}: {float(d.max())} apart, over 2 lr")
+    off = int(((d > RECON_STEP_APART * lr) & ~near).sum())
+    check(off <= 1e-4 * d.numel(), f"{label}: {off} of {d.numel()} elements apart")
+    far = d[~near]
+    return {"max_over_lr": float(d.max()) / lr, "near_zero": int(near.sum()),
+            "other_max_over_lr": float(far.max()) / lr if far.numel() else 0.0,
+            "other_apart": off, "of": d.numel()}
+
+
+def _recon_small_card_vs_cpu(device) -> dict:
+    """Check 1: one deterministic Stage-1 step at a small width (2 instances,
+    4 layers, D 32, 64 rays, 16 + 16 samples, the fitted decoder) on the card
+    and on the CPU."""
+    import torch
+
+    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
+    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+    from humanliff_tpu_torch.train.stage1 import Stage1Config, create_train_state, train_step
+
+    cfg = Stage1Config(num_instances=2, triplane_dim=32,
+                       render=RenderConfig(n_samples=16, n_importance=16, perturb=False,
+                                           density_noise=False))
+    planes = torch.from_numpy(stage1_fixture_planes(2, 4, 32))
+    flat = flatten_state_dict(load_fitted_decoder("cpu").state_dict())
+    ds = SyntheticLayeredDataset(num_instances=2, n_rays=64, image_size=32, tight_bounds=True)
+    items = [(1 * 64 + 3, 1), (256 + 3 * 64 + 17, 2)]  # (0, layer 1), (1, layer 3)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state = create_train_state({"planes": planes.to(dev, copy=True),
+                                    "decoder": flat.to(dev, copy=True)},
+                                   make_stage1_optimizer())
+        aux = train_step(state, stage1_batch(ds, items, dev), cfg)
+        runs.append((state, {k: float(v) for k, v in aux.items()}))
+    (card, m_card), (cpu, m_cpu) = runs
+    out = {}
+    for k, v in m_cpu.items():
+        rel = abs(m_card[k] - v) / max(abs(v), 1e-30)
+        check(rel <= RECON_SMALL_METRIC_REL, f"recon small: {k} {m_card[k]} vs {v}")
+        out[f"metric_{k}"] = rel
+    for group, lr in (("planes", 1e-1), ("decoder", 5e-3)):
+        mu_card, mu_cpu = card.opt_state[group]["mu"], cpu.opt_state[group]["mu"]
+        rel = float((mu_card.double().cpu() - mu_cpu.double()).norm() / mu_cpu.double().norm())
+        check(rel <= RECON_SMALL_MOMENT_REL, f"recon small: {group} first moment {rel}")
+        out[f"{group}_mu_rel_l2"] = rel
+        # After one step the first moment is 0.1 x the gradient.
+        out[group] = near_zero_apart(card.params[group], cpu.params[group], mu_cpu / 0.1, lr,
+                                     f"recon small {group}")
+    say(f"[recon] check 1, one step at D 32 / 64 rays / 16 + 16 samples, card vs CPU: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _recon_descent_and_cache(device, steps: int = 10, D: int = 256, n_rays: int = 2048,
+                             samples: int = 128, probe_points: int = 1 << 16) -> dict:
+    """Checks 3 and 4: ``steps`` deterministic steps on one fixed batch at
+    the full width (2 instances), the loss falling by RECON_DESCENT_MIN_DROP;
+    after every step the kernel, through the packed-weight cache, against
+    decoder_plain of the current weights on fixed probe inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
+    from humanliff_tpu_torch.nerf.decoder import FlatDecoder
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.ops.fused_decoder import decoder_plain, fused_decoder
+    from humanliff_tpu_torch.ops.triplane import sample_triplane_features
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+    from humanliff_tpu_torch.train.stage1 import (
+        Stage1Config,
+        create_train_state,
+        init_params,
+        train_step,
+    )
+
+    cfg = Stage1Config(num_instances=2, triplane_dim=D,
+                       render=RenderConfig(n_samples=samples, n_importance=samples,
+                                           perturb=False, density_noise=False))
+    state = create_train_state(init_params(cfg, seed=0, device=device), make_stage1_optimizer())
+    ds = SyntheticLayeredDataset(num_instances=2, n_rays=n_rays, image_size=128,
+                                 tight_bounds=True)
+    batch = stage1_batch(ds, [(3, 21), (256 + 2 * 64 + 9, 22)], device)
+    fitted = load_fitted_planes(3).to(device)
+    box = torch.from_numpy(BOUNDS).to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    coords = torch.rand(probe_points, 3, generator=gen, device=device) * (box[1] - box[0]) + box[0]
+    feats = sample_triplane_features(fitted, coords, box).contiguous()
+    dirs = F.normalize(torch.randn(probe_points, 3, generator=gen, device=device), dim=-1)
+    losses, errs, prev = [], [], None
+    for _ in range(steps + 1):
+        losses.append(float(train_step(state, batch, cfg)["loss"]))
+        with torch.no_grad():
+            w = FlatDecoder(state.params["decoder"]).weights()
+            rgb, alpha = fused_decoder(w, feats, dirs)
+            ref_rgb, ref_alpha = decoder_plain(w, feats, dirs)
+        sync(device)
+        scale = max(float(ref_rgb.abs().max()), float(ref_alpha.abs().max()))
+        err = max(float((rgb - ref_rgb).abs().max()), float((alpha - ref_alpha).abs().max()))
+        tol = 1e-4 + 1e-5 * scale  # the kernel phase's fp32 bar
+        check(err <= tol, f"recon: after step {len(losses)} the kernel is {err} from "
+                          f"decoder_plain of the current weights (tol {tol})")
+        if prev is not None:
+            check(float((rgb - prev).abs().max()) > 0.0,
+                  f"recon: the kernel's output did not change at step {len(losses)}")
+        prev = rgb
+        errs.append(err)
+    drop = 1.0 - losses[-1] / losses[0]
+    say(f"[recon] check 3, descent on a fixed batch (D {D}, {n_rays} rays x 2, {samples} + "
+        f"{samples} samples): loss {losses[0]:.6f} -> {losses[-1]:.6f} after {steps} steps "
+        f"({drop:.4%}; bar {RECON_DESCENT_MIN_DROP:.2%}): "
+        f"{', '.join(f'{v:.6f}' for v in losses)}")
+    say(f"[recon] check 4, kernel vs decoder_plain of the current weights after each step "
+        f"({probe_points} points): max abs err {', '.join(f'{e:.3e}' for e in errs)}")
+    check(all(math.isfinite(v) for v in losses) and drop >= RECON_DESCENT_MIN_DROP,
+          f"the Stage-1 loss did not descend: {losses}")
+    return {"losses": losses, "drop": drop, "cache_errs": errs}
+
+
+def _recon_eval_committed(device, views=None) -> dict:
+    """Check 6: evaluate_views (exact tier) on the committed fitted pair at
+    the reference's image size, per (subject, layer, view) against the JAX
+    package's numbers (STAGE1_REFERENCE), and the pair's deterministic
+    stage1_loss on the reference's fixed batch. ``views`` limits the views
+    (a CPU rehearsal); the launches are the views' only."""
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
+    from humanliff_tpu_torch.eval.harness import evaluate_views
+    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.train.stage1 import Stage1Config, stage1_loss
+
+    with open(STAGE1_REFERENCE) as f:
+        ref = json.load(f)
+    dec = load_fitted_decoder(device)
+    planes = []
+    for path in (PLANES_NPZ, PLANES_NPZ_1):
+        with np.load(path) as z:
+            planes.append(torch.from_numpy(np.ascontiguousarray(z["tri_planes"])).to(device))
+    cfg = RenderConfig(n_samples=ref["n_samples"], n_importance=ref["n_importance"],
+                       perturb=False, density_noise=False)
+    S = ref["image_size"]
+    ds = SyntheticLayeredDataset(num_instances=2, n_rays=ref["batch"]["n_rays"], image_size=S,
+                                 tight_bounds=True)
+    keys = list(ref["eval"]) if views is None else list(views)
+    gaps, expected = {}, 0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for key in keys:
+        subject, layer, view = (int(part[1:]) for part in key.split("_"))
+        item = ds.test_item(subject, layer, view)
+        expected += 2 * math.ceil(int(item["ray_mask"].sum()) / ref["chunk"])
+        agg = evaluate_views(dec, planes[subject][layer], [item], cfg, chunk=ref["chunk"],
+                             tag=key)
+        gaps[key] = agg["psnr"] - ref["eval"][key]["psnr"]
+    sync(device)
+    eval_s = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["fused_decoder"]
+    worst = max(gaps, key=lambda k: abs(gaps[k]))
+    say(f"[recon] check 6, eval of the committed pair ({len(keys)} views at {S}^2, exact "
+        f"tier) in {eval_s:.3f} s: PSNR card - JAX CPU per view (bar {RECON_EVAL_PSNR_DB} dB) "
+        + ", ".join(f"{k} {ref['eval'][k]['psnr']:.4f}{gaps[k]:+.5f}" for k in keys))
+    check(abs(gaps[worst]) <= RECON_EVAL_PSNR_DB,
+          f"recon eval: {worst} is {gaps[worst]:+.4f} dB from the JAX CPU reference")
+
+    scfg = Stage1Config(num_instances=2, render=cfg, tv_loss_coef=ref["batch"]["tv_loss_coef"],
+                        l1_loss_coef=ref["batch"]["l1_loss_coef"],
+                        acc_loss_coef=ref["batch"]["acc_loss_coef"])
+    params = {"planes": torch.stack(planes), "decoder": flatten_state_dict(dec.state_dict(),
+                                                                           device)}
+    with torch.no_grad():
+        loss, aux = stage1_loss(params, stage1_batch(ds, ref["batch"]["items"], device), scfg)
+    loss_rel = abs(float(loss) - ref["loss"]) / ref["loss"]
+    say(f"[recon] check 6, stage1_loss of the pair on the reference batch: {float(loss):.8f} "
+        f"vs JAX CPU {ref['loss']:.8f}: {loss_rel:.3e} relative (bar {RECON_LOSS_REL}); psnr "
+        f"{float(aux['psnr']):.4f} vs {ref['aux']['psnr']:.4f}")
+    check(loss_rel <= RECON_LOSS_REL, f"recon: the pair's loss is {loss_rel} from JAX's")
+    return {"launches": launches, "expected": expected, "psnr_gaps": gaps,
+            "max_abs_gap_db": abs(gaps[worst]), "loss_rel": loss_rel, "eval_s": eval_s}
+
+
+def phase_recon(device, steps: int = 20, cli_flags=(), ft_steps: int = 3, descent=None,
+                eval_views=None) -> dict:
+    """Stage 1's seven checks (module docstring). ``cli_flags`` are added to
+    the three CLIs' (a CPU rehearsal shrinks the width with them), ``descent``
+    to _recon_descent_and_cache's arguments, ``eval_views`` limits check 6.
+    The run directory (about 8.5 GB of checkpoint at the flagship width)
+    lives in a temporary directory, removed at the end."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import recon_ft, recon_test, recon_train
+    from humanliff_tpu_torch.data.raygen import full_image_rays
+    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
+    from humanliff_tpu_torch.data.triplane_data import TriplaneDataset, pack_subject_planes
+    from humanliff_tpu_torch.eval.harness import default_test_views
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+    from humanliff_tpu_torch.train.stage1 import train_step
+    from humanliff_tpu_torch.utils.config import parse_with_config
+
+    out = {"small": _recon_small_card_vs_cpu(device)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recon_")
+    try:
+        # Check 2: the training CLI at the flagship width.
+        common = ["--config", SYNBODY_CONFIG, "--data_set_type", "synthetic",
+                  "--synthetic_image_size", "128", "--synthetic_tight_bounds", "true",
+                  "--basedir", tmp, "--expname", "run", "--device", device.type, *cli_flags]
+        argv = common + ["--n_iteration", str(steps), "--i_print", str(steps // 2)]
+        say(f"[recon] python -m humanliff_tpu_torch.cli.recon_train {' '.join(argv)}")
+        timer = StepTimer(recon_train.train_step, device, profile_at=2)
+        saves = []
+        real_save = ckpt.save_state
+
+        def timed_save(ckpt_dir, step, state):
+            t0 = time.perf_counter()
+            path = real_save(ckpt_dir, step, state)
+            saves.append((step, time.perf_counter() - t0,
+                          os.path.getsize(os.path.join(path, ckpt.STATE_FILE)) / 1e9))
+            return path
+
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        recon_train.train_step, ckpt.save_state = timer, timed_save
+        try:
+            t0 = time.perf_counter()
+            state = recon_train.main(argv)
+            train_s = time.perf_counter() - t0
+        finally:
+            recon_train.train_step, ckpt.save_state = train_step, real_save
+        launches = kernels.LAUNCHES["fused_decoder"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+        table_gb = state.params["planes"].numel() * 4 / 1e9
+        del state
+        with open(os.path.join(tmp, "run", "progress.json")) as f:
+            logs = [json.loads(line) for line in f]
+        for m in logs:
+            say(f"[recon] step {m['step']}: loss {m['loss']:.6f}, psnr {m['psnr']:.4f}, "
+                f"time_per_iter {m['time_per_iter']:.4f} s, loader_wait_per_iter "
+                f"{m['loader_wait_per_iter']:.4f} s")
+        check(len(logs) == 2 and all(math.isfinite(v) for m in logs for v in m.values()),
+              f"non-finite or missing Stage-1 logs: {logs}")
+        wall_s = statistics.median(timer.wall[3:])
+        rec = {"steps": steps, "train_s": train_s, "wall_s_per_step": wall_s,
+               "wall_s_all": timer.wall, "peak_gb": peak_gb, "table_gb": table_gb,
+               "saves": saves, "losses": [m["loss"] for m in logs],
+               "loader_wait_per_iter": [m["loader_wait_per_iter"] for m in logs],
+               "launches": launches}
+        if device.type == "cuda":
+            rec.update(event_ms_per_step=statistics.median(timer.event_ms[3:]),
+                       kernel_ms=timer.kernel_ms, kernels=timer.kernels,
+                       busy=timer.kernel_ms / (1e3 * wall_s))
+            say(f"[recon] check 2, flagship width: {steps} steps in {train_s:.3f} s; s/step "
+                f"(median of steps 4-{steps}) {wall_s:.4f}; device ms/step by CUDA events "
+                f"{rec['event_ms_per_step']:.3f}; profiled step {timer.profile_at + 1}: "
+                f"{timer.kernel_ms:.3f} ms of kernels ({timer.kernels} launches), busy share "
+                f"{rec['busy']:.4f}; peak memory {peak_gb:.3f} GB (table {table_gb:.3f} GB)")
+            say("[recon] profiled step, operators by kernel ms (ms, calls): "
+                + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in timer.top))
+        say(f"[recon] saves (step, s, GB): {saves}; per-step wall s: "
+            f"{', '.join(f'{w:.4f}' for w in timer.wall)}")
+        check(saves and saves[-1][0] == steps, f"no final save at step {steps}: {saves}")
+        expect_launches(device, launches, 2 * steps,
+                        f"recon_train ({steps} steps: the coarse and the fine pass each)")
+        out["flagship"] = rec
+
+        out["descent"] = _recon_descent_and_cache(device, **(descent or {}))
+
+        # Check 5: the fine-tune of subject 0 from the saved state.
+        captured = {}
+        real_load = recon_ft.load_shared
+
+        def capture(expdir, dev):
+            shared = real_load(expdir, dev)
+            captured.update(decoder=shared["decoder"], before=shared["decoder"].clone())
+            return shared
+
+        ft_dir = os.path.join(tmp, "planes")
+        ft_argv = common + ["--ft_steps", str(ft_steps), "--start_idx", "0", "--end_idx", "1",
+                            "--out_dir", ft_dir]
+        say(f"[recon] python -m humanliff_tpu_torch.cli.recon_ft {' '.join(ft_argv)}")
+        recon_ft.load_shared = capture
+        kernels.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            recon_ft.main(ft_argv)
+            ft_s = time.perf_counter() - t0
+        finally:
+            recon_ft.load_shared = real_load
+        ft_launches = kernels.LAUNCHES["fused_decoder"]
+        same = torch.equal(captured["decoder"], captured["before"])
+        export = os.path.join(ft_dir, "subject0000_002000.npz")
+        packed = pack_subject_planes([export], os.path.join(tmp, "packed.npy"))
+        item = TriplaneDataset(os.path.join(tmp, "packed.npy")).item(3)
+        say(f"[recon] check 5, recon_ft of subject 0 ({ft_steps} steps x 4 layers) in "
+            f"{ft_s:.3f} s: decoder bit for bit {same}; export packs to {packed.shape}, "
+            f"item 3: x {item['x'].shape}, y {int(item['y'])}")
+        check(same, "recon_ft moved the frozen decoder")
+        check(np.isfinite(packed).all() and packed.shape[:2] == (1, 4) and int(item["y"]) == 3,
+              "the fine-tune's export does not pack for Stage 2")
+        expect_launches(device, ft_launches, 2 * 4 * ft_steps, "recon_ft")
+        out["ft"] = {"launches": ft_launches, "seconds": ft_s}
+
+        out["eval"] = _recon_eval_committed(device, eval_views)
+        expect_launches(device, out["eval"]["launches"], out["eval"]["expected"], "recon eval")
+
+        # Check 7: recon_test of subject 0 with the fine-tune's planes.
+        test_argv = common + ["--triplane_dir", ft_dir, "--start_idx", "0", "--end_idx", "1",
+                              "--savedir", os.path.join(tmp, "test")]
+        say(f"[recon] python -m humanliff_tpu_torch.cli.recon_test {' '.join(test_argv)}")
+        args = parse_with_config(recon_test.build_parser(), test_argv)
+        # The subjects' shapes come from one generator over all instances.
+        ds = SyntheticLayeredDataset(num_instances=args.num_instance,
+                                     image_size=args.synthetic_image_size, tight_bounds=True)
+        S, expected = args.synthetic_image_size, 0
+        for layer in range(4):
+            for view in default_test_views(layer):
+                mask = full_image_rays(S, S, *ds._test_camera(view), ds.instance_bounds(0))[4]
+                expected += 2 * math.ceil(int(mask.sum()) / 4096)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = recon_test.main(test_argv)
+        test_s = time.perf_counter() - t0
+        test_launches = kernels.LAUNCHES["fused_decoder"]
+        say(f"[recon] check 7, recon_test in {test_s:.3f} s: "
+            + "; ".join(f"{k} psnr {m['psnr']:.3f} ssim {m['ssim']:.4f}"
+                        for k, m in metrics.items()))
+        check(len(metrics) == 4 and all(math.isfinite(m["psnr"]) for m in metrics.values()),
+              f"recon_test metrics: {metrics}")
+        expect_launches(device, test_launches, expected, "recon_test")
+        out["test"] = {"launches": test_launches, "seconds": test_s}
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1221,13 +1664,23 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+PHASES = ("build", "kernel", "generate", "decode", "mesh", "cli", "train", "recon")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=250,
                     help="respaced DDPM steps per layer (of 1000)")
     ap.add_argument("--cli_steps", default="ddim50",
                     help="the CLI phase's --timestep_respacing")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run (default all; decode and cli need "
+                         "generate)")
     args = ap.parse_args(argv)
+    phases = args.phases.split(",")
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown or (("decode" in phases or "cli" in phases) and "generate" not in phases):
+        ap.error(f"--phases {args.phases}: unknown {unknown} or decode/cli without generate")
 
     import torch
 
@@ -1248,55 +1701,80 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     cuda_sync = torch.cuda.synchronize
     t_start = time.perf_counter()
+    summary = []
 
     with Phase("build", cuda_sync):
         build = phase_build()
+        summary.append(f"build {build['seconds']:.3f} s")
     with Phase("kernel", cuda_sync):
         kern = phase_kernel(device)
 
     # The main path, path by path; each reads fused_decoder's launches from 0.
     paths = {}
     kernels.reset_launches()
-    with Phase("generate", cuda_sync):
-        gen = phase_generate(device, args.steps)
-    with Phase("decode", cuda_sync):
-        dec = phase_decode(device, gen["layers"]["person_pant_shirt_shoes"])
-        expect_launches(device, dec["launches"], 2 * math.ceil(dec["n_rays"] / RENDER_CHUNK),
-                        "generation + exact view (generated): coarse + fine per "
-                        f"{RENDER_CHUNK}-ray chunk")
-        paths["generate + exact view (generated)"] = dec["launches"]
-        fast = phase_fast(device, dec["planes"], dec["ray_args"], "generated",
-                          exact_rgb=dec["rgb"])
-        paths["grid build (generated)"] = fast["grid_launches"]
-        paths["fast view (generated)"] = fast["fast_launches"]
-        fitted = phase_fitted_planes(device, dec["ray_args"])
-        paths["exact view (fitted)"] = fitted["launches"]
-        fast_fit = phase_fast(device, fitted["planes"], dec["ray_args"], "fitted",
-                              exact_rgb=fitted["rgb"], exact_bar=FITTED_FAST_VS_EXACT_DB)
-        paths["grid build (fitted)"] = fast_fit["grid_launches"]
-        paths["fast view (fitted)"] = fast_fit["fast_launches"]
-    with Phase("mesh", cuda_sync):
-        mesh = phase_mesh(device)
-        paths[f"mesh {MESH_RESOLUTION}^3 (fitted)"] = mesh["launches"]
-    with Phase("cli", cuda_sync):
-        cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
-                        cli_flags=("--mesh_resolution", str(CLI_MESH_RESOLUTION)))
-        paths["cli"] = cli["launches"]
-    with Phase("train", cuda_sync):
-        train = phase_train(device)
-        paths["train"] = train["flagship"]["launches"]
-        check(paths["train"] == 0, f"training launched fused_decoder {paths['train']} times")
+    if "generate" in phases:
+        with Phase("generate", cuda_sync):
+            gen = phase_generate(device, args.steps)
+        summary.append(f"generation {sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x "
+                       f"4 layers; per layer {', '.join(f'{s:.3f}' for s in gen['per_layer_s'])}"
+                       " s)")
+    if "decode" in phases:
+        with Phase("decode", cuda_sync):
+            dec = phase_decode(device, gen["layers"]["person_pant_shirt_shoes"])
+            expect_launches(device, dec["launches"],
+                            2 * math.ceil(dec["n_rays"] / RENDER_CHUNK),
+                            "generation + exact view (generated): coarse + fine per "
+                            f"{RENDER_CHUNK}-ray chunk")
+            paths["generate + exact view (generated)"] = dec["launches"]
+            fast = phase_fast(device, dec["planes"], dec["ray_args"], "generated",
+                              exact_rgb=dec["rgb"])
+            paths["grid build (generated)"] = fast["grid_launches"]
+            paths["fast view (generated)"] = fast["fast_launches"]
+            fitted = phase_fitted_planes(device, dec["ray_args"])
+            paths["exact view (fitted)"] = fitted["launches"]
+            fast_fit = phase_fast(device, fitted["planes"], dec["ray_args"], "fitted",
+                                  exact_rgb=fitted["rgb"], exact_bar=FITTED_FAST_VS_EXACT_DB)
+            paths["grid build (fitted)"] = fast_fit["grid_launches"]
+            paths["fast view (fitted)"] = fast_fit["fast_launches"]
+        summary.append(f"512^2 view 0, exact / fast (grid + render): generated "
+                       f"{dec['render_s']:.3f} / {fast['render_s']:.3f} s, fitted "
+                       f"{fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s")
+    if "mesh" in phases:
+        with Phase("mesh", cuda_sync):
+            mesh = phase_mesh(device)
+            paths[f"mesh {MESH_RESOLUTION}^3 (fitted)"] = mesh["launches"]
+        summary.append(f"mesh {MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s")
+    if "cli" in phases:
+        with Phase("cli", cuda_sync):
+            cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
+                            cli_flags=("--mesh_resolution", str(CLI_MESH_RESOLUTION)))
+            paths["cli"] = cli["launches"]
+        summary.append(f"cli {cli['cli_s']:.3f} s")
+    if "train" in phases:
+        with Phase("train", cuda_sync):
+            train = phase_train(device)
+            paths["train"] = train["flagship"]["launches"]
+            check(paths["train"] == 0,
+                  f"training launched fused_decoder {paths['train']} times")
+        summary.append(f"train {train['flagship']['wall_s_per_step']:.4f} s/step, peak "
+                       f"{train['flagship']['peak_gb']:.3f} GB")
+    if "recon" in phases:
+        with Phase("recon", cuda_sync):
+            recon = phase_recon(device)
+            paths["recon_train"] = recon["flagship"]["launches"]
+            paths["recon_ft"] = recon["ft"]["launches"]
+            paths["recon eval"] = recon["eval"]["launches"]
+            paths["recon_test"] = recon["test"]["launches"]
+        flag = recon["flagship"]
+        summary.append(f"recon_train {flag['wall_s_per_step']:.4f} s/step "
+                       f"({flag['event_ms_per_step']:.3f} device ms, busy {flag['busy']:.4f}), "
+                       f"peak {flag['peak_gb']:.3f} GB, save {flag['saves'][-1][1]:.3f} s / "
+                       f"{flag['saves'][-1][2]:.3f} GB; eval vs JAX max "
+                       f"{recon['eval']['max_abs_gap_db']:.5f} dB")
 
-    say(f"summary: build {build['seconds']:.3f} s, generation "
-        f"{sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x 4 layers; per layer "
-        f"{', '.join(f'{s:.3f}' for s in gen['per_layer_s'])} s); 512^2 view 0, exact / "
-        f"fast (grid + render): generated {dec['render_s']:.3f} / {fast['render_s']:.3f} s, "
-        f"fitted {fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s; mesh "
-        f"{MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s; cli {cli['cli_s']:.3f} s; train "
-        f"{train['flagship']['wall_s_per_step']:.4f} s/step, peak "
-        f"{train['flagship']['peak_gb']:.3f} GB; total "
-        f"{time.perf_counter() - t_start:.3f} s")
-    say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}")
+    say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
+    say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "
+        f"fine pass {kern['stage1_backward_ms']:.4f} ms")
     say(json.dumps({"kernels": [{
         "name": "fused_decoder",
         "route": "cuda",
@@ -1311,6 +1789,8 @@ def main(argv=None) -> int:
         "bound_by": kern["bound"]["by"],
         "bound_term": kern["bound"]["term"],
         "library_ms": None,
+        "main_shapes": kern["main_shapes"],
+        "stage1_backward_ms": kern["stage1_backward_ms"],
     }]}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

@@ -73,6 +73,7 @@ from humanliff_tpu_torch.sampling.layered import (
     planes_image_to_triplane,
 )
 from humanliff_tpu_torch.train import checkpoint as ckpt
+from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils.video import write_png, write_video
 
 # The orbit views' box (the JAX CLI's default bounds).
@@ -132,13 +133,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "trajectory_{layer}_b{done}.npz (0 = off)")
     p.add_argument("--seed", type=int, default=0)
     return p
-
-
-def _device(name: str) -> torch.device:
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available; "
-                           "pass --device cpu to run on the CPU")
-    return torch.device(name)
 
 
 def load_train_weights(model_dir: str, step, rate: str):
@@ -241,7 +235,7 @@ def _write_json(path: str, obj) -> None:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
+    device = device_for(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     model, diffusion = _load_model(args, device)
     decoder = _load_decoder(args, device) if args.decode else None

@@ -55,6 +55,7 @@ from humanliff_tpu_torch.train.stage2 import (
     train_step,
 )
 from humanliff_tpu_torch.utils import logger as loglib
+from humanliff_tpu_torch.utils.config import device_for
 
 METRIC_KEYS = ["loss", "grad_norm"] + [f"loss_q{q}" for q in range(4)]
 DEVICE_DATA_MAX_BYTES = 1 << 30
@@ -105,13 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--total_steps", type=int, default=300000)
     p.add_argument("--seed", type=int, default=0)
     return p
-
-
-def _device(name: str) -> torch.device:
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda, but CUDA is not available; "
-                           "pass --device cpu to run on the CPU")
-    return torch.device(name)
 
 
 def _batches(args, device):
@@ -178,7 +172,7 @@ def _resume(args, state) -> None:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = _device(args.device)
+    device = device_for(args.device)
     if args.use_3d_aware or args.use_checkpoint:
         raise NotImplementedError("--use_3d_aware and --use_checkpoint are not ported")
     os.makedirs(args.logdir, exist_ok=True)

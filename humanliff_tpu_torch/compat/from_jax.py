@@ -1,5 +1,5 @@
-"""Convert the JAX package's parameters and Stage-2 train state into this
-package's state dicts.
+"""Convert the JAX package's parameters and Stage-1 and Stage-2 train states
+into this package's state dicts.
 
 Inputs are nested dicts of numpy arrays, as flax ``params`` trees come out of
 ``jax.device_get``, or flat dicts with ``/``-joined keys, as in the
@@ -242,3 +242,40 @@ def load_stage2_npz(path: str, num_res_blocks: int = 3,
     with np.load(path) as z:
         return stage2_state_from_arrays({k: z[k] for k in z.files}, num_res_blocks,
                                         channel_mult, attention_ds)
+
+
+def stage1_state_from_arrays(arrays: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX Stage-1 ``TrainState`` as flat numpy arrays -> the port's
+    checkpoint dict (``train/stage1.py::state_payload``'s layout, for
+    ``restore_into``).
+
+    Keys, as ``scripts/export_jax_weights.py --stage1`` writes them: ``step``;
+    ``planes`` (N, L, 3, C3, D, D); the decoder under ``params/<layer>/<kernel
+    or bias>`` (the ``save_decoder_npz`` names); ``planes_mu``, ``planes_nu``
+    and ``planes_count``; and, unless the decoder was frozen,
+    ``decoder_mu/params/...``, ``decoder_nu/params/...`` and
+    ``decoder_count``.
+    """
+    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
+
+    def decoder_flat(prefix: str) -> torch.Tensor:
+        flat = {k[len(prefix):]: v for k, v in arrays.items() if k.startswith(prefix + "params/")}
+        return flatten_state_dict(decoder_state_dict(flat))
+
+    def planes(key: str) -> torch.Tensor:
+        return torch.from_numpy(np.array(arrays[key], np.float32))
+
+    opt: Dict[str, Any] = {"planes": {"mu": planes("planes_mu"), "nu": planes("planes_nu"),
+                                      "count": int(arrays["planes_count"])},
+                           "decoder": None}
+    if "decoder_count" in arrays:
+        opt["decoder"] = {"mu": decoder_flat("decoder_mu/"), "nu": decoder_flat("decoder_nu/"),
+                          "count": int(arrays["decoder_count"])}
+    return {"step": int(arrays["step"]), "planes": planes("planes"),
+            "decoder": decoder_flat(""), "opt_state": opt}
+
+
+def load_stage1_npz(path: str) -> Dict[str, Any]:
+    """:func:`stage1_state_from_arrays` of an npz file."""
+    with np.load(path) as z:
+        return stage1_state_from_arrays({k: z[k] for k in z.files})

@@ -9,16 +9,28 @@ lib/renderer.py:38-43), so a reference Stage-1 checkpoint loads as it is.
 
 Every forward goes through :func:`humanliff_tpu_torch.ops.fused_decoder.fused_decoder`:
 the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+Training keeps the decoder's 14 tensors in one flat fp32 buffer
+(:class:`FlatDecoder`): the kernel's packed-weight cache is keyed on each
+weight's storage and version counter, and views share their buffer's
+counter, so an in-place optimizer update of the buffer repacks.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
-from humanliff_tpu_torch.ops.fused_decoder import fused_decoder
+from humanliff_tpu_torch.ops.fused_decoder import _SHAPES, fused_decoder
+
+# State-dict names of the kernel's 14 weights, in ``NeRFDecoder.weights()`` order.
+PARAM_NAMES = tuple(f"{layer}.{kind}" for layer in (
+    "pts_linears.0", "pts_linears.1", "pts_linears.2", "alpha_linear", "feature_linear",
+    "views_linear", "rgb_linear") for kind in ("weight", "bias"))
+N_PARAMS = sum(math.prod(s) for s in _SHAPES)
 
 
 class NeRFDecoder(nn.Module):
@@ -48,3 +60,43 @@ class NeRFDecoder(nn.Module):
     ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
         """(raw rgb (M, 3) or None, raw density (M, 1)), fp32."""
         return fused_decoder(self.weights(), features, viewdirs)
+
+
+def weight_views(flat: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The 14 weights as views of a flat ``(N_PARAMS,)`` buffer."""
+    if flat.shape != (N_PARAMS,):
+        raise ValueError(f"flat decoder weights must be ({N_PARAMS},), got {tuple(flat.shape)}")
+    out, at = [], 0
+    for shape in _SHAPES:
+        n = math.prod(shape)
+        out.append(flat[at:at + n].view(shape))
+        at += n
+    return tuple(out)
+
+
+def flatten_state_dict(state_dict: Mapping[str, torch.Tensor], device=None) -> torch.Tensor:
+    """A new flat fp32 buffer holding a ``NeRFDecoder`` state dict."""
+    missing = set(PARAM_NAMES) ^ set(state_dict)
+    if missing:
+        raise KeyError(f"not a NeRFDecoder state dict: {sorted(missing)}")
+    return torch.cat([torch.as_tensor(state_dict[n]).detach().float().reshape(-1)
+                      for n in PARAM_NAMES]).to(device)
+
+
+class FlatDecoder:
+    """The decoder over a flat weight buffer ``flat`` ``(N_PARAMS,)``: called
+    like :class:`NeRFDecoder`, its weights are views of ``flat`` made at each
+    call, so gradients reach ``flat`` and in-place updates of it are seen."""
+
+    def __init__(self, flat: torch.Tensor):
+        self.flat = flat
+
+    def weights(self) -> Tuple[torch.Tensor, ...]:
+        return weight_views(self.flat)
+
+    def __call__(self, features: torch.Tensor, viewdirs: Optional[torch.Tensor] = None):
+        return fused_decoder(self.weights(), features, viewdirs)
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """A ``NeRFDecoder`` state dict (detached views of the buffer)."""
+        return dict(zip(PARAM_NAMES, (w.detach() for w in self.weights())))

@@ -40,9 +40,14 @@ class RenderConfig:
 
 def features_along(planes: torch.Tensor, rays_o: torch.Tensor, rays_d: torch.Tensor,
                    z_vals: torch.Tensor, box_warp: torch.Tensor) -> torch.Tensor:
-    """``(R * S, 27)`` features at the points ``o + z d`` in the planes' dtype."""
-    pts = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
-    return sample_triplane_features(planes, pts.reshape(-1, 3), box_warp).to(planes.dtype)
+    """``(R * S, 27)`` features at the points ``o + z d`` in the planes' dtype;
+    with batched planes ``(B, 3, C3, D, D)`` (rays ``(B, R, 3)``, depths
+    ``(B, R, S)``, ``box_warp`` ``(B, 2, 3)``) the ``(B * R * S, 27)`` of all
+    items, for one decoder call."""
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., None]
+    pts = pts.reshape(-1, 3) if planes.dim() == 4 else pts.reshape(planes.shape[0], -1, 3)
+    feats = sample_triplane_features(planes, pts, box_warp).to(planes.dtype)
+    return feats.reshape(-1, feats.shape[-1])
 
 
 def shade_rays(
@@ -57,15 +62,14 @@ def shade_rays(
     white_bkgd: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
-    """The fine pass at the depths ``z_vals`` ``(R, S)``: the full decoder,
-    sigmoid rgb, compositing (density noise from ``generator`` if given) and
-    depth normalized by near/far (renderer.py:271-288)."""
-    R, S = z_vals.shape
+    """The fine pass at the depths ``z_vals`` ``(..., R, S)``: the full
+    decoder, sigmoid rgb, compositing (density noise from ``generator`` if
+    given) and depth normalized by near/far (renderer.py:271-288)."""
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    dirs = viewdirs[:, None, :].expand(R, S, 3).reshape(-1, 3).to(planes.dtype)
+    dirs = viewdirs[..., None, :].expand(*z_vals.shape, 3).reshape(-1, 3).to(planes.dtype)
     rgb_raw, dens_raw = decoder(features_along(planes, rays_o, rays_d, z_vals, box_warp), dirs)
-    rgb = torch.sigmoid(rgb_raw).reshape(R, S, 3)
-    dens = dens_raw[:, 0].reshape(R, S)
+    rgb = torch.sigmoid(rgb_raw).reshape(*z_vals.shape, 3)
+    dens = dens_raw[:, 0].reshape(z_vals.shape)
     rgb_map, acc_map, depth_map = composite_rays(
         rgb, dens, z_vals, generator=generator, white_bkgd=white_bkgd
     )
@@ -86,26 +90,51 @@ def render_rays(
 ) -> Dict[str, torch.Tensor]:
     """Render ``(R, 3)`` rays against one ``(3, C3, D, D)`` tri-plane.
 
-    ``decoder`` is a :class:`~humanliff_tpu_torch.nerf.decoder.NeRFDecoder`.
-    Features and directions reach the decoder in the planes' dtype (bf16 planes
-    give the kernel bf16 inputs). ``generator`` drives stratified jitter,
-    random fine sampling and density noise; None is the deterministic eval path.
-    Returns rgb (R, 3), acc (R,), depth (R,) normalized by near/far.
+    ``decoder`` is a :class:`~humanliff_tpu_torch.nerf.decoder.NeRFDecoder`
+    (or any callable ``(feats, dirs=None) -> (rgb_raw, alpha_raw)``).
+    Features and directions reach the decoder in the planes' dtype (bf16
+    planes give the kernel bf16 inputs). ``generator`` drives stratified
+    jitter, random fine sampling and density noise, in that order; None is the
+    deterministic eval path. Returns rgb (R, 3), acc (R,), depth (R,)
+    normalized by near/far. Batched planes take the shapes of
+    :func:`render_rays_batch`.
     """
-    R = rays_o.shape[0]
     g_strat = generator if cfg.perturb else None
     z_vals = stratified_z_vals(near, far, cfg.n_samples, generator=g_strat)
 
     if cfg.n_importance > 0:
         with torch.no_grad():  # coarse pass: density only (renderer.py:258-269)
             _, dens = decoder(features_along(planes, rays_o, rays_d, z_vals, box_warp))
-            dens = dens[:, 0].reshape(R, cfg.n_samples)
+            dens = dens[:, 0].reshape(z_vals.shape)
             new_z = upsample_z_vals(dens, z_vals, rays_d, cfg.n_importance,
                                     generator=generator)
             z_vals = merge_z_vals(z_vals, new_z)
 
     return shade_rays(decoder, planes, rays_o, rays_d, near, far, z_vals, box_warp,
                       cfg.white_bkgd, generator if cfg.density_noise else None)
+
+
+def render_rays_batch(
+    decoder,
+    planes: torch.Tensor,
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    near: torch.Tensor,
+    far: torch.Tensor,
+    box_warp: torch.Tensor,
+    cfg: RenderConfig,
+    generator: Optional[torch.Generator] = None,
+) -> Dict[str, torch.Tensor]:
+    """The natively batched render of Stage-1 training (renderer.py:144-219):
+    planes ``(B, 3, C3, D, D)``, rays ``(B, R, 3)``, near/far ``(B, R)``,
+    ``box_warp`` ``(B, 2, 3)``. Each pass is one decoder call over all
+    ``B * R * S`` points (one kernel launch), the coarse pass without
+    gradients. Returns rgb (B, R, 3), acc (B, R), depth (B, R)."""
+    B, R = rays_o.shape[:2]
+    if planes.dim() != 5 or planes.shape[0] != B or tuple(box_warp.shape) != (B, 2, 3):
+        raise ValueError(f"batched render: planes {tuple(planes.shape)}, rays "
+                         f"{tuple(rays_o.shape)}, box_warp {tuple(box_warp.shape)}")
+    return render_rays(decoder, planes, rays_o, rays_d, near, far, box_warp, cfg, generator)
 
 
 def masked_rays(device, rays_o, rays_d, near, far, mask, box_warp, bg_color: float,

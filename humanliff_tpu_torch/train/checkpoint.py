@@ -9,7 +9,8 @@
   ``tri_planes`` (L, 3, C3, D, D) and ``global_step`` in an npz).
 - Layer samples (``save_samples_npz`` / ``load_samples_npz``, the next
   layer's x_cond, arr_0 convention) and the Stage-1 decoder sidecar
-  (``load_decoder_npz``, ``/``-joined flax keys).
+  (``save_decoder_npz`` / ``load_decoder_npz``, ``/``-joined flax keys
+  ``params/trunk_0/kernel``, kernels (in, out), and ``__global_step__``).
 """
 
 from __future__ import annotations
@@ -124,6 +125,27 @@ def save_samples_npz(path: str, samples: np.ndarray) -> None:
 def load_samples_npz(path: str) -> np.ndarray:
     with np.load(path) as z:
         return z[z.files[0]]
+
+
+# Flax layer names of the decoder, by the port's layer names.
+_FLAX_DECODER_NAMES = {
+    "pts_linears.0": "trunk_0", "pts_linears.1": "trunk_1", "pts_linears.2": "trunk_2",
+    "alpha_linear": "alpha", "feature_linear": "feature", "views_linear": "views",
+    "rgb_linear": "rgb",
+}
+
+
+def save_decoder_npz(path: str, decoder_state: Dict[str, Any], step: int = 0) -> None:
+    """The decoder-only sidecar of a Stage-1 checkpoint, from a ``NeRFDecoder``
+    state dict, in the JAX package's layout (``load_decoder_npz`` of either
+    package reads it)."""
+    flat: Dict[str, np.ndarray] = {}
+    for layer, flax_name in _FLAX_DECODER_NAMES.items():
+        w = decoder_state[f"{layer}.weight"].detach().float().cpu().numpy()
+        flat[f"params/{flax_name}/kernel"] = np.ascontiguousarray(w.T)
+        flat[f"params/{flax_name}/bias"] = (
+            decoder_state[f"{layer}.bias"].detach().float().cpu().numpy())
+    np.savez_compressed(path, __global_step__=step, **flat)
 
 
 def load_decoder_npz(path: str) -> Dict[str, Any]:

@@ -107,6 +107,35 @@ def test_fused_decoder_gradients(device):
                                atol=1e-4, rtol=1e-4)
 
 
+def test_kernel_follows_in_place_updates_of_a_flat_decoder(device):
+    """Stage-1 training updates the decoder's flat buffer in place; the
+    weights the kernel reads are views of it, so each update repacks: after
+    every Adam step the kernel equals decoder_plain of the current weights."""
+    from humanliff_tpu_torch.nerf.decoder import FlatDecoder, flatten_state_dict
+    from humanliff_tpu_torch.train.optim import Stage1Optimizer, stage1_decoder_schedule
+
+    torch.manual_seed(1)
+    flat = flatten_state_dict(NeRFDecoder().state_dict(), device)
+    tx = Stage1Optimizer(plane_schedule=lambda step: 0.0,
+                         decoder_schedule=stage1_decoder_schedule(5e-3))
+    params = {"planes": torch.zeros(1, device=device), "decoder": flat}
+    state = tx.init(params)
+    feats = torch.randn(4099, 27, device=device)
+    dirs = F.normalize(torch.randn(4099, 3, device=device), dim=-1)
+    prev = None
+    for _ in range(3):
+        w = FlatDecoder(flat).weights()
+        rgb, alpha = fused_decoder(w, feats, dirs)
+        ref_rgb, ref_alpha = decoder_plain(w, feats, dirs)
+        for out, ref in ((rgb, ref_rgb), (alpha, ref_alpha)):
+            assert float((out - ref).abs().max()) <= _tol("float32", ref)
+        if prev is not None:
+            assert float((rgb - prev).abs().max()) > 0.0
+        prev = rgb
+        grads = {"planes": torch.zeros(1, device=device), "decoder": torch.randn_like(flat)}
+        state = tx.step_(params, grads, state)
+
+
 def test_fused_decoder_rejects_non_contiguous(device):
     dec = NeRFDecoder().to(device)
     feats = torch.randn(27, 64, device=device).t()

@@ -49,6 +49,16 @@ def test_training_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_stage1_modules_are_checked():
+    files = set(_port_files())
+    for module in ("cli/recon_train.py", "cli/recon_ft.py", "cli/recon_test.py",
+                   "train/stage1.py", "train/stage1_ft.py", "train/optim.py",
+                   "train/checkpoint.py", "data/synthetic.py", "data/raygen.py",
+                   "eval/metrics.py", "eval/harness.py", "utils/config.py",
+                   "nerf/renderer.py", "nerf/decoder.py", "compat/from_jax.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]
