@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``humanliff_tpu_torch``) once on one NVIDIA H100.
 
-    python3 chip_smoke.py [--steps 250] [--cli_steps ddim50] [--phases build,kernel,...]
+    python3 chip_smoke.py [--steps 250] [--cli_steps ddim50]
 
 The main path is flagship inference, what ``bench.py`` times for the JAX
 package: four chained layers of the ControlNet UNet at full width
@@ -67,8 +67,7 @@ exact decode, each grid build, each fast view, the fitted exact view, the
 mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
 recon_test) and read just after it; Stage-2 training renders nothing and
 must launch the decoder kernel 0 times, a Stage-1 step exactly twice (the
-coarse and the fine pass). ``--phases`` runs a subset (build and kernel
-always run). The last three lines are a
+coarse and the fine pass). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
 budget exits non-zero before the result. Without CUDA, or run outside a
@@ -1511,8 +1510,6 @@ def phase_recon(device, steps: int = 20, cli_flags=(), ft_steps: int = 3, descen
 
     from humanliff_tpu_torch import kernels
     from humanliff_tpu_torch.cli import recon_ft, recon_test, recon_train
-    from humanliff_tpu_torch.data.raygen import full_image_rays
-    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
     from humanliff_tpu_torch.data.triplane_data import TriplaneDataset, pack_subject_planes
     from humanliff_tpu_torch.eval.harness import default_test_views
     from humanliff_tpu_torch.train import checkpoint as ckpt
@@ -1630,15 +1627,10 @@ def phase_recon(device, steps: int = 20, cli_flags=(), ft_steps: int = 3, descen
         test_argv = common + ["--triplane_dir", ft_dir, "--start_idx", "0", "--end_idx", "1",
                               "--savedir", os.path.join(tmp, "test")]
         say(f"[recon] python -m humanliff_tpu_torch.cli.recon_test {' '.join(test_argv)}")
-        args = parse_with_config(recon_test.build_parser(), test_argv)
-        # The subjects' shapes come from one generator over all instances.
-        ds = SyntheticLayeredDataset(num_instances=args.num_instance,
-                                     image_size=args.synthetic_image_size, tight_bounds=True)
-        S, expected = args.synthetic_image_size, 0
-        for layer in range(4):
-            for view in default_test_views(layer):
-                mask = full_image_rays(S, S, *ds._test_camera(view), ds.instance_bounds(0))[4]
-                expected += 2 * math.ceil(int(mask.sum()) / 4096)
+        # The CLI's own dataset gives the held-out views' ray masks.
+        ds, _ = recon_train.build_dataset(parse_with_config(recon_test.build_parser(), test_argv))
+        expected = sum(2 * math.ceil(int(ds.test_item(0, layer, view)["ray_mask"].sum()) / 4096)
+                       for layer in range(4) for view in default_test_views(layer))
         kernels.reset_launches()
         t0 = time.perf_counter()
         metrics = recon_test.main(test_argv)
@@ -1664,23 +1656,13 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-PHASES = ("build", "kernel", "generate", "decode", "mesh", "cli", "train", "recon")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=250,
                     help="respaced DDPM steps per layer (of 1000)")
     ap.add_argument("--cli_steps", default="ddim50",
                     help="the CLI phase's --timestep_respacing")
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated phases to run (default all; decode and cli need "
-                         "generate)")
     args = ap.parse_args(argv)
-    phases = args.phases.split(",")
-    unknown = sorted(set(phases) - set(PHASES))
-    if unknown or (("decode" in phases or "cli" in phases) and "generate" not in phases):
-        ap.error(f"--phases {args.phases}: unknown {unknown} or decode/cli without generate")
 
     import torch
 
@@ -1712,65 +1694,59 @@ def main(argv=None) -> int:
     # The main path, path by path; each reads fused_decoder's launches from 0.
     paths = {}
     kernels.reset_launches()
-    if "generate" in phases:
-        with Phase("generate", cuda_sync):
-            gen = phase_generate(device, args.steps)
-        summary.append(f"generation {sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x "
-                       f"4 layers; per layer {', '.join(f'{s:.3f}' for s in gen['per_layer_s'])}"
-                       " s)")
-    if "decode" in phases:
-        with Phase("decode", cuda_sync):
-            dec = phase_decode(device, gen["layers"]["person_pant_shirt_shoes"])
-            expect_launches(device, dec["launches"],
-                            2 * math.ceil(dec["n_rays"] / RENDER_CHUNK),
-                            "generation + exact view (generated): coarse + fine per "
-                            f"{RENDER_CHUNK}-ray chunk")
-            paths["generate + exact view (generated)"] = dec["launches"]
-            fast = phase_fast(device, dec["planes"], dec["ray_args"], "generated",
-                              exact_rgb=dec["rgb"])
-            paths["grid build (generated)"] = fast["grid_launches"]
-            paths["fast view (generated)"] = fast["fast_launches"]
-            fitted = phase_fitted_planes(device, dec["ray_args"])
-            paths["exact view (fitted)"] = fitted["launches"]
-            fast_fit = phase_fast(device, fitted["planes"], dec["ray_args"], "fitted",
-                                  exact_rgb=fitted["rgb"], exact_bar=FITTED_FAST_VS_EXACT_DB)
-            paths["grid build (fitted)"] = fast_fit["grid_launches"]
-            paths["fast view (fitted)"] = fast_fit["fast_launches"]
-        summary.append(f"512^2 view 0, exact / fast (grid + render): generated "
-                       f"{dec['render_s']:.3f} / {fast['render_s']:.3f} s, fitted "
-                       f"{fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s")
-    if "mesh" in phases:
-        with Phase("mesh", cuda_sync):
-            mesh = phase_mesh(device)
-            paths[f"mesh {MESH_RESOLUTION}^3 (fitted)"] = mesh["launches"]
-        summary.append(f"mesh {MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s")
-    if "cli" in phases:
-        with Phase("cli", cuda_sync):
-            cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
-                            cli_flags=("--mesh_resolution", str(CLI_MESH_RESOLUTION)))
-            paths["cli"] = cli["launches"]
-        summary.append(f"cli {cli['cli_s']:.3f} s")
-    if "train" in phases:
-        with Phase("train", cuda_sync):
-            train = phase_train(device)
-            paths["train"] = train["flagship"]["launches"]
-            check(paths["train"] == 0,
-                  f"training launched fused_decoder {paths['train']} times")
-        summary.append(f"train {train['flagship']['wall_s_per_step']:.4f} s/step, peak "
-                       f"{train['flagship']['peak_gb']:.3f} GB")
-    if "recon" in phases:
-        with Phase("recon", cuda_sync):
-            recon = phase_recon(device)
-            paths["recon_train"] = recon["flagship"]["launches"]
-            paths["recon_ft"] = recon["ft"]["launches"]
-            paths["recon eval"] = recon["eval"]["launches"]
-            paths["recon_test"] = recon["test"]["launches"]
-        flag = recon["flagship"]
-        summary.append(f"recon_train {flag['wall_s_per_step']:.4f} s/step "
-                       f"({flag['event_ms_per_step']:.3f} device ms, busy {flag['busy']:.4f}), "
-                       f"peak {flag['peak_gb']:.3f} GB, save {flag['saves'][-1][1]:.3f} s / "
-                       f"{flag['saves'][-1][2]:.3f} GB; eval vs JAX max "
-                       f"{recon['eval']['max_abs_gap_db']:.5f} dB")
+    with Phase("generate", cuda_sync):
+        gen = phase_generate(device, args.steps)
+    summary.append(f"generation {sum(gen['per_layer_s']):.3f} s ({gen['steps']} steps x "
+                   f"4 layers; per layer {', '.join(f'{s:.3f}' for s in gen['per_layer_s'])}"
+                   " s)")
+    with Phase("decode", cuda_sync):
+        dec = phase_decode(device, gen["layers"]["person_pant_shirt_shoes"])
+        expect_launches(device, dec["launches"],
+                        2 * math.ceil(dec["n_rays"] / RENDER_CHUNK),
+                        "generation + exact view (generated): coarse + fine per "
+                        f"{RENDER_CHUNK}-ray chunk")
+        paths["generate + exact view (generated)"] = dec["launches"]
+        fast = phase_fast(device, dec["planes"], dec["ray_args"], "generated",
+                          exact_rgb=dec["rgb"])
+        paths["grid build (generated)"] = fast["grid_launches"]
+        paths["fast view (generated)"] = fast["fast_launches"]
+        fitted = phase_fitted_planes(device, dec["ray_args"])
+        paths["exact view (fitted)"] = fitted["launches"]
+        fast_fit = phase_fast(device, fitted["planes"], dec["ray_args"], "fitted",
+                              exact_rgb=fitted["rgb"], exact_bar=FITTED_FAST_VS_EXACT_DB)
+        paths["grid build (fitted)"] = fast_fit["grid_launches"]
+        paths["fast view (fitted)"] = fast_fit["fast_launches"]
+    summary.append(f"512^2 view 0, exact / fast (grid + render): generated "
+                   f"{dec['render_s']:.3f} / {fast['render_s']:.3f} s, fitted "
+                   f"{fitted['render_s']:.3f} / {fast_fit['render_s']:.3f} s")
+    with Phase("mesh", cuda_sync):
+        mesh = phase_mesh(device)
+        paths[f"mesh {MESH_RESOLUTION}^3 (fitted)"] = mesh["launches"]
+    summary.append(f"mesh {MESH_RESOLUTION}^3 {mesh['mesh_s']:.3f} s")
+    with Phase("cli", cuda_sync):
+        cli = phase_cli(device, gen["layers"]["person_pant_shirt"], args.cli_steps,
+                        cli_flags=("--mesh_resolution", str(CLI_MESH_RESOLUTION)))
+        paths["cli"] = cli["launches"]
+    summary.append(f"cli {cli['cli_s']:.3f} s")
+    with Phase("train", cuda_sync):
+        train = phase_train(device)
+        paths["train"] = train["flagship"]["launches"]
+        check(paths["train"] == 0,
+              f"training launched fused_decoder {paths['train']} times")
+    summary.append(f"train {train['flagship']['wall_s_per_step']:.4f} s/step, peak "
+                   f"{train['flagship']['peak_gb']:.3f} GB")
+    with Phase("recon", cuda_sync):
+        recon = phase_recon(device)
+        paths["recon_train"] = recon["flagship"]["launches"]
+        paths["recon_ft"] = recon["ft"]["launches"]
+        paths["recon eval"] = recon["eval"]["launches"]
+        paths["recon_test"] = recon["test"]["launches"]
+    flag = recon["flagship"]
+    summary.append(f"recon_train {flag['wall_s_per_step']:.4f} s/step "
+                   f"({flag['event_ms_per_step']:.3f} device ms, busy {flag['busy']:.4f}), "
+                   f"peak {flag['peak_gb']:.3f} GB, save {flag['saves'][-1][1]:.3f} s / "
+                   f"{flag['saves'][-1][2]:.3f} GB; eval vs JAX max "
+                   f"{recon['eval']['max_abs_gap_db']:.5f} dB")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "

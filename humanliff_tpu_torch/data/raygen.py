@@ -1,7 +1,6 @@
-"""Host-side rays (port of ``humanliff_tpu/data/raygen.py``): ``get_rays_np``
-and ``get_near_far_np`` are the pinhole rays and the exactly-two-hits AABB
-test of ``ops/rays.py`` under the JAX module's names, and
-``full_image_rays`` gives every pixel's eval ray."""
+"""Full-image eval rays (port of ``humanliff_tpu/data/raygen.py::full_image_rays``;
+its ``get_rays_np`` and ``get_near_far_np`` are ``ops/rays.py``'s ``get_rays``
+and ``intersect_aabb``)."""
 
 from __future__ import annotations
 
@@ -10,10 +9,6 @@ from typing import Tuple
 import numpy as np
 
 from humanliff_tpu_torch.ops.rays import get_rays, intersect_aabb
-
-
-get_rays_np = get_rays
-get_near_far_np = intersect_aabb  # bounds padded by 0.01 (if_nerf_data_utils.py:50-85)
 
 
 def full_image_rays(

@@ -16,7 +16,8 @@ from typing import Dict
 
 import numpy as np
 
-from humanliff_tpu_torch.data.raygen import full_image_rays, get_near_far_np, get_rays_np
+from humanliff_tpu_torch.data.raygen import full_image_rays
+from humanliff_tpu_torch.ops.rays import get_rays, intersect_aabb
 
 
 def _ellipsoid_density(pts: np.ndarray, center, radii, sharpness=40.0):
@@ -137,10 +138,10 @@ class SyntheticLayeredDataset:
         bounds = self.instance_bounds(inst)
         K, R, T = self._camera(view)
         S = self.image_size
-        ray_o, ray_d = get_rays_np(S, S, K, R, T)
+        ray_o, ray_d = get_rays(S, S, K, R, T)
         ray_o = ray_o.reshape(-1, 3).astype(np.float32)
         ray_d = ray_d.reshape(-1, 3).astype(np.float32)
-        near, far, hit = get_near_far_np(bounds, ray_o, ray_d)
+        near, far, hit = intersect_aabb(bounds, ray_o, ray_d)
         idx = np.where(hit)[0]
         ro, rd = ray_o[idx], ray_d[idx]
         nr = near[idx].astype(np.float32)

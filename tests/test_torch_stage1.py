@@ -14,15 +14,16 @@ samples, deterministic path; tests/torch_stage1_util.py). Bars:
 - gradients: relative L2 <= 1e-5 per tensor (the table, each decoder tensor);
 - one train step, and a second one from JAX's state after the first (carried
   across by ``scripts/export_jax_weights.py`` and ``compat/from_jax.py``):
-  parameters within 1e-6, except where a gradient
-  is near zero (``torch_stage1_util.near_zero_rule``): at most 1e-4 of the
-  elements may sit within 2 lr per step where it takes the other sign, and
-  every element whose gradient is under 1e-6 (100 x Adam's eps) at some
-  step may sit that far apart. Adam's step there reads the gradient's size,
-  whose last bits are fp32 rounding where the image, TV and L1 terms cancel:
-  here 9,079 of the table's 27,648 elements (the 13,824 of untouched slices
-  have a gradient of exactly 0), which step up to 1.3e-3 lr apart in one
-  step, while the rest agree within 1.8e-8;
+  parameters within 1e-6, and within 1e-2 lr per step where the gradient is
+  under 1e-6 (100 x Adam's eps) at some step; at most 1e-4 of the elements
+  may break these bars, within 2 lr per step, where a gradient near zero
+  takes the other sign (``torch_stage1_util.near_zero_rule``). Adam's step
+  on a near-zero gradient reads its size, whose last bits are fp32 rounding
+  where the image, TV and L1 terms cancel. Measured over the four step
+  tests: near-zero elements (about 22,600 of the table's 27,648, the
+  13,824 of untouched slices included, and 125-267 of the decoder's 66,884)
+  step at most 1.3e-3 lr (table) and 5.5e-3 lr (decoder) apart, the rest
+  within 1.0e-6, and at most one element of a tensor breaks its bar;
 - the alpha head's gradients: relative L2 <= 1e-4, not 1e-5. They sum terms
   of both signs over every sample, and fp32 rounding leaves both packages
   that far from an fp64 evaluation of the same function (measured: JAX

@@ -1,6 +1,6 @@
 """Port parity of Stage-1 data and metrics: ``data/synthetic.py`` (items and
-held-out view items bit for bit), ``data/raygen.py`` (the ray and AABB
-functions of the JAX ``data/raygen.py``, exact) and ``eval/metrics.py``
+held-out view items bit for bit), ``ops/rays.py`` and ``data/raygen.py`` (the ray
+and AABB functions of the JAX ``data/raygen.py``, exact) and ``eval/metrics.py``
 (``mse``, ``psnr``, ``ssim``: rtol 1e-6)."""
 
 import numpy as np
@@ -10,6 +10,7 @@ from humanliff_tpu.data import raygen as jraygen
 from humanliff_tpu.data.synthetic import SyntheticLayeredDataset as JaxSynthetic
 from humanliff_tpu.eval import metrics as jmetrics
 from humanliff_tpu_torch.data import raygen
+from humanliff_tpu_torch.ops import rays
 from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
 from humanliff_tpu_torch.eval import metrics
 
@@ -63,12 +64,12 @@ def _camera(seed):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_raygen_functions_match(seed):
     K, R, T = _camera(seed)
-    for a, b in zip(raygen.get_rays_np(16, 12, K, R, T), jraygen.get_rays_np(16, 12, K, R, T)):
+    for a, b in zip(rays.get_rays(16, 12, K, R, T), jraygen.get_rays_np(16, 12, K, R, T)):
         np.testing.assert_array_equal(a, b)
     ro, rd = jraygen.get_rays_np(16, 16, K, R, T)
     ro, rd = ro.reshape(-1, 3).astype(np.float32), rd.reshape(-1, 3).astype(np.float32)
     bounds = np.asarray([[-0.5, -0.6, -0.4], [0.5, 0.6, 0.4]], np.float32)
-    for a, b in zip(raygen.get_near_far_np(bounds, ro, rd),
+    for a, b in zip(rays.intersect_aabb(bounds, ro, rd),
                     jraygen.get_near_far_np(bounds, ro, rd)):
         np.testing.assert_array_equal(a, b)
     for a, b in zip(raygen.full_image_rays(16, 16, K, R, T, bounds),

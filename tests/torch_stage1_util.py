@@ -118,20 +118,24 @@ def decoder_flat(tree) -> np.ndarray:
 # 100 eps; below, its size reads the gradient's value, whose last bits are
 # rounding where the loss's terms cancel.
 NEAR_ZERO_GRAD = 1e-6
+# How far apart an element whose gradient is near zero may step, per step in
+# units of lr (the Stage-2 tests' bar).
+NEAR_ZERO_STEP = 1e-2
 
 
 def near_zero_rule(got: np.ndarray, want: np.ndarray, lr: float, steps: int, label: str,
                    near_zero: np.ndarray, atol: float = 1e-6) -> dict:
-    """Parameters after Adam steps agree within ``atol``, except where
-    ``near_zero`` (a gradient under NEAR_ZERO_GRAD at some step): there they
-    may sit up to 2 x lr x steps apart, as where a gradient near 0 takes the
-    other sign. At most 1e-4 of the other elements may sit that far apart
-    (the rule of the Stage-2 tests)."""
+    """Parameters after Adam steps agree within ``atol``, and within
+    NEAR_ZERO_STEP x lr x steps where ``near_zero`` (a gradient under
+    NEAR_ZERO_GRAD at some step). At most 1e-4 of all the elements may break
+    these bars, where a gradient near 0 takes the other sign: they sit up to
+    2 x lr x steps apart (the rule of the Stage-2 tests)."""
     d = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
     assert d.max() <= 2 * lr * steps + atol, (label, float(d.max()))
-    off = (d > atol) & ~near_zero
-    assert off.sum() <= 1e-4 * d.size, (label, int(off.sum()), d.size,
-                                        float(d[~near_zero].max()))
+    bar = np.where(near_zero, NEAR_ZERO_STEP * lr * steps + atol, atol)
+    off = d > bar
+    assert off.sum() <= 1e-4 * d.size, (label, int(off.sum()), d.size)
     return {"max": float(d.max()), "near_zero": int(near_zero.sum()),
-            "apart_near_zero": int(((d > atol) & near_zero).sum()), "apart_other": int(off.sum()),
+            "max_near_zero": float(d[near_zero].max(initial=0.0)),
+            "max_other": float(d[~near_zero].max(initial=0.0)), "flipped": int(off.sum()),
             "of": d.size}
