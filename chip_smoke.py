@@ -61,13 +61,30 @@ Phases, each printed with its seconds and failed past its budget:
               for Stage 2); eval of the committed fitted pair against the
               JAX package's numbers (scripts/stage1_jax_reference.py), view
               by view, and the pair's loss; recon_test                    240 s
+    canonical canonical space (TightCap) on the seeded SMPL-shaped synthetic
+              body (J 24, V 6,890), six checks: the batched deform of 2 x
+              2^20 points, card vs CPU (nearest-vertex ids and points), with
+              the 1-NN and the whole deform timed and the deform's peak
+              memory; one deterministic canonical step at D 32, card vs CPU;
+              20 canonical steps at configs/TightCap.txt's width (107
+              instances, D 256, 2 x 2,048 rays, 128 + 128 samples, fp32) on
+              items of the TightCap loader's array half (data/tightcap.py::
+              build_item, 512^2 images and garment masks from orbit cameras)
+              with s/step, device ms/step, busy share, the deform's share of
+              the kernel time and peak memory; descent on a fixed canonical
+              batch; the kernel against decoder_plain on that batch's fine
+              pass (deformed directions); the committed fitted planes
+              through make_eval_deform_fn (scripts/canonical_jax_reference.py):
+              the exact tier against JAX's, the fast tier against the exact
+              one, the 128^3 mesh of the posed subject                   240 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
 mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
-recon_test) and read just after it; Stage-2 training renders nothing and
-must launch the decoder kernel 0 times, a Stage-1 step exactly twice (the
-coarse and the fine pass). The last three lines are a
+recon_test, canonical training, and the canonical exact view, grid build,
+fast view and mesh) and read just after it; Stage-2 training renders nothing
+and must launch the decoder kernel 0 times, a Stage-1 step, world or
+canonical, exactly twice (the coarse and the fine pass). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
 budget exits non-zero before the result. Without CUDA, or run outside a
@@ -99,9 +116,13 @@ PLANES_NPZ_1 = os.path.join(REPO, "runs", "quality", "stage2", "planes",
                             "campaign0001_060000.npz")
 STAGE1_REFERENCE = os.path.join(REPO, "runs", "quality", "stage1_jax_reference.json")
 SYNBODY_CONFIG = os.path.join(REPO, "configs", "SynBody.txt")
+TIGHTCAP_CONFIG = os.path.join(REPO, "configs", "TightCap.txt")
+# The JAX package's canonical-space render of the fitted planes and deform of
+# a fixed query (scripts/canonical_jax_reference.py, on the CPU).
+CANONICAL_REFERENCE = os.path.join(REPO, "runs", "quality", "canonical_jax_reference.npz")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
-            "cli": 360, "train": 300, "recon": 240}
+            "cli": 360, "train": 300, "recon": 240, "canonical": 240}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -160,6 +181,20 @@ RECON_DESCENT_MIN_DROP = 0.08
 # 0.00595 dB), the pair's loss on the reference batch within RECON_LOSS_REL
 # (read 4.7e-5).
 RECON_EVAL_PSNR_DB, RECON_LOSS_REL = 0.1, 5e-4
+
+# Canonical space (the canonical phase). Check 1, the batched deform on the
+# card against the CPU: nearest-vertex ids agree on at least this share of
+# the points, and where they agree points and directions within
+# CANON_DEFORM_ATOL. Check 4: 10 deterministic canonical steps on one fixed
+# batch lower the loss by this share. Check 6: the card's exact tier within
+# CANON_EXACT_DB of the JAX package's (PSNR over the in-box rays); its fast
+# tier at least as close to its exact tier as the JAX package's own, less
+# CANON_FAST_MARGIN_DB.
+CANON_ID_AGREE, CANON_DEFORM_ATOL = 0.9999, 1e-4
+CANON_DESCENT_MIN_DROP = 0.05
+CANON_EXACT_DB, CANON_FAST_MARGIN_DB = 40.0, 0.5
+# The deform's 1-NN: 2 x 2^20 query points.
+CANON_DEFORM_POINTS = 1 << 20
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
 # tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
@@ -604,10 +639,11 @@ def rerender_exact(dec, planes, ray_args, out, label: str, n_check_rays=256) -> 
     return compare_subset(out, ref, idx, f"exact tier, {label}")
 
 
-def kept_rays(grid, rays, box, cfg, eps: float):
+def kept_rays(grid, rays, box, cfg, eps: float, deform=None):
     """The fast tier's keep flag (R,) of in-box rays (rays_o, rays_d, near,
     far on the device) at ``early_term_eps`` ``eps``, from the grid's coarse
-    phase in render_image_fast's chunks; no decoder call."""
+    phase in render_image_fast's chunks (through ``deform`` where given); no
+    decoder call."""
     import torch
 
     from humanliff_tpu_torch.nerf.fastpath import coarse_from_grid
@@ -615,7 +651,8 @@ def kept_rays(grid, rays, box, cfg, eps: float):
     n = rays[0].shape[0]
     keep = []
     for s in range(0, n, COARSE_CHUNK):  # FAST_GROUP is a multiple of COARSE_CHUNK
-        _, acc_est = coarse_from_grid(grid, *(r[s:s + COARSE_CHUNK] for r in rays), box, cfg)
+        _, acc_est = coarse_from_grid(grid, *(r[s:s + COARSE_CHUNK] for r in rays), box, cfg,
+                                      deform)
         keep.append(acc_est > eps)
     return torch.cat(keep)
 
@@ -1323,6 +1360,42 @@ def near_zero_apart(got, want, grad, lr: float, label: str) -> dict:
             "other_apart": off, "of": d.numel()}
 
 
+def small_step_card_vs_cpu(device, cfg, planes, batch_fn, label: str, body_model=None) -> dict:
+    """One deterministic Stage-1 step from ``planes`` and the fitted decoder
+    on the card and on the CPU, on ``batch_fn(device)``: metrics within
+    RECON_SMALL_METRIC_REL, each group's first moment within
+    RECON_SMALL_MOMENT_REL, parameters by near_zero_apart."""
+    import torch
+
+    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+    from humanliff_tpu_torch.train.stage1 import create_train_state, train_step
+
+    flat = flatten_state_dict(load_fitted_decoder("cpu").state_dict())
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        state = create_train_state({"planes": planes.to(dev, copy=True),
+                                    "decoder": flat.to(dev, copy=True)},
+                                   make_stage1_optimizer())
+        aux = train_step(state, batch_fn(dev), cfg, body_model=body_model)
+        runs.append((state, {k: float(v) for k, v in aux.items()}))
+    (card, m_card), (cpu, m_cpu) = runs
+    out = {}
+    for k, v in m_cpu.items():
+        rel = abs(m_card[k] - v) / max(abs(v), 1e-30)
+        check(rel <= RECON_SMALL_METRIC_REL, f"{label}: {k} {m_card[k]} vs {v}")
+        out[f"metric_{k}"] = rel
+    for group, lr in (("planes", 1e-1), ("decoder", 5e-3)):
+        mu_card, mu_cpu = card.opt_state[group]["mu"], cpu.opt_state[group]["mu"]
+        rel = float((mu_card.double().cpu() - mu_cpu.double()).norm() / mu_cpu.double().norm())
+        check(rel <= RECON_SMALL_MOMENT_REL, f"{label}: {group} first moment {rel}")
+        out[f"{group}_mu_rel_l2"] = rel
+        # After one step the first moment is 0.1 x the gradient.
+        out[group] = near_zero_apart(card.params[group], cpu.params[group], mu_cpu / 0.1, lr,
+                                     f"{label} {group}")
+    return out
+
+
 def _recon_small_card_vs_cpu(device) -> dict:
     """Check 1: one deterministic Stage-1 step at a small width (2 instances,
     4 layers, D 32, 64 rays, 16 + 16 samples, the fitted decoder) on the card
@@ -1330,39 +1403,16 @@ def _recon_small_card_vs_cpu(device) -> dict:
     import torch
 
     from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
-    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
     from humanliff_tpu_torch.nerf.renderer import RenderConfig
-    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
-    from humanliff_tpu_torch.train.stage1 import Stage1Config, create_train_state, train_step
+    from humanliff_tpu_torch.train.stage1 import Stage1Config
 
     cfg = Stage1Config(num_instances=2, triplane_dim=32,
                        render=RenderConfig(n_samples=16, n_importance=16, perturb=False,
                                            density_noise=False))
-    planes = torch.from_numpy(stage1_fixture_planes(2, 4, 32))
-    flat = flatten_state_dict(load_fitted_decoder("cpu").state_dict())
     ds = SyntheticLayeredDataset(num_instances=2, n_rays=64, image_size=32, tight_bounds=True)
     items = [(1 * 64 + 3, 1), (256 + 3 * 64 + 17, 2)]  # (0, layer 1), (1, layer 3)
-    runs = []
-    for dev in (device, torch.device("cpu")):
-        state = create_train_state({"planes": planes.to(dev, copy=True),
-                                    "decoder": flat.to(dev, copy=True)},
-                                   make_stage1_optimizer())
-        aux = train_step(state, stage1_batch(ds, items, dev), cfg)
-        runs.append((state, {k: float(v) for k, v in aux.items()}))
-    (card, m_card), (cpu, m_cpu) = runs
-    out = {}
-    for k, v in m_cpu.items():
-        rel = abs(m_card[k] - v) / max(abs(v), 1e-30)
-        check(rel <= RECON_SMALL_METRIC_REL, f"recon small: {k} {m_card[k]} vs {v}")
-        out[f"metric_{k}"] = rel
-    for group, lr in (("planes", 1e-1), ("decoder", 5e-3)):
-        mu_card, mu_cpu = card.opt_state[group]["mu"], cpu.opt_state[group]["mu"]
-        rel = float((mu_card.double().cpu() - mu_cpu.double()).norm() / mu_cpu.double().norm())
-        check(rel <= RECON_SMALL_MOMENT_REL, f"recon small: {group} first moment {rel}")
-        out[f"{group}_mu_rel_l2"] = rel
-        # After one step the first moment is 0.1 x the gradient.
-        out[group] = near_zero_apart(card.params[group], cpu.params[group], mu_cpu / 0.1, lr,
-                                     f"recon small {group}")
+    out = small_step_card_vs_cpu(device, cfg, torch.from_numpy(stage1_fixture_planes(2, 4, 32)),
+                                 lambda dev: stage1_batch(ds, items, dev), "recon small")
     say(f"[recon] check 1, one step at D 32 / 64 rays / 16 + 16 samples, card vs CPU: "
         f"{json.dumps(out)}")
     return out
@@ -1648,6 +1698,486 @@ def phase_recon(device, steps: int = 20, cli_flags=(), ft_steps: int = 3, descen
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# Canonical space (TightCap): the body model, the deform and the canonical paths
+# --------------------------------------------------------------------------
+
+
+def orbit_camera(bounds: np.ndarray, S: int, theta: float = 0.7):
+    """(K, R, T) of a camera on an orbit around the box ``bounds``, looking at
+    its centre from 2.5 times its largest side, the box about 60 % of the
+    image (scripts/canonical_jax_reference.py's camera)."""
+    c = bounds.mean(0).astype(np.float64)
+    e = float((bounds[1] - bounds[0]).max())
+    d = 2.5 * e
+    way = np.asarray([np.cos(theta), 0.15, np.sin(theta)])
+    eye = c + d * way / np.linalg.norm(way)
+    fwd = (c - eye) / np.linalg.norm(c - eye)
+    right = np.cross(fwd, [0.0, 1.0, 0.0])
+    right /= np.linalg.norm(right)
+    R = np.stack([right, -np.cross(right, fwd), fwd], axis=0)
+    T = (-R @ eye).reshape(3, 1)
+    f = 0.6 * S * d / e
+    return np.asarray([[f, 0, S / 2], [0, f, S / 2], [0, 0, 1]]), R, T
+
+
+class CanonicalScene:
+    """The seeded SMPL-shaped synthetic body (J 24, V 6,890, 10 betas) in
+    ``n_poses`` seeded poses, each placed in the world by a seeded rotation
+    and a translation of 1 to 3 m, and TightCap items of it from 512^2
+    images: each pose seen by ``n_views`` orbit cameras, its garment masks
+    made by projecting the posed vertices, its colours seeded. Items come
+    from data/tightcap.py::build_item, the array half of the loader."""
+
+    def __init__(self, n_poses: int = 4, n_views: int = 8, S: int = 512, seed: int = 0):
+        import torch
+
+        from humanliff_tpu_torch.bodymodel.rotations import batch_rodrigues
+        from humanliff_tpu_torch.bodymodel.smpl import lbs_forward_np, make_synthetic_body_model
+        from humanliff_tpu_torch.data.tightcap import big_pose_bounds
+
+        self.body = make_synthetic_body_model(J=24, V=6890, n_betas=10, seed=0)
+        self.t_pose, _, self.box = big_pose_bounds(self.body)
+        rng = np.random.default_rng(seed)
+        self.S, self.n_views = S, n_views
+        self.poses = []
+        for _ in range(n_poses):
+            poses = rng.normal(scale=0.2, size=72).astype(np.float32)
+            betas = rng.normal(scale=0.5, size=10).astype(np.float32)
+            axis = rng.normal(size=3)
+            Rg = batch_rodrigues(torch.from_numpy(
+                (axis / np.linalg.norm(axis) * rng.uniform(0.2, 1.0)).astype(np.float32))).numpy()
+            way = rng.normal(size=3)
+            Th = (way / np.linalg.norm(way) * rng.uniform(1.0, 3.0)).astype(np.float32)
+            verts = lbs_forward_np(self.body, poses, betas) @ Rg.T + Th
+            self.poses.append(dict(poses=poses, betas=betas, Rg=Rg, Th=Th, world=verts))
+        self._views = {}
+
+    def view(self, p: int, v: int) -> dict:
+        """Camera, image and masks of pose ``p`` from orbit camera ``v``."""
+        key = (p, v)
+        if key not in self._views:
+            pose, S = self.poses[p], self.S
+            world = pose["world"]
+            bounds = np.stack([world.min(0), world.max(0)])
+            K, R, T = orbit_camera(bounds, S, theta=2 * np.pi * v / self.n_views)
+            uvw = (world @ R.T + T.T) @ K.T
+            px = np.round(uvw[:, :2] / uvw[:, 2:]).astype(int)
+            hit = np.zeros((S, S), np.float32)
+            ok = (px >= 0).all(1) & (px < S).all(1)
+            hit[px[ok, 1], px[ok, 0]] = 1.0
+            full = hit.copy()
+            for dy in range(-4, 5):  # a 9 x 9 dilation: the splatted body
+                for dx in range(-4, 5):
+                    full = np.maximum(full, np.roll(np.roll(hit, dy, 0), dx, 1))
+            rng = np.random.default_rng(1000 * p + v)
+            img = np.kron(rng.uniform(0.2, 0.9, (S // 32, S // 32, 3)),
+                          np.ones((32, 32, 1))).astype(np.float32)
+            ys = np.flatnonzero(full.any(1))
+            y0, y1 = ys.min(), ys.max() + 1
+
+            def band(a, b):  # the body's rows from a to b of its height
+                rows = np.arange(S)[:, None]
+                return full * ((rows >= y0 + a * (y1 - y0)) & (rows < y0 + b * (y1 - y0)))
+
+            garments = {"naked": full * (rng.uniform(size=(S, S)) < 0.9),
+                        "top": band(0.0, 0.4), "bottom": band(0.4, 0.85),
+                        "shoes": band(0.85, 1.01)}
+            self._views[key] = dict(img=img, full_mask=full, garments=garments, K=K, R_cam=R,
+                                    T_cam=T)
+        return self._views[key]
+
+    def item(self, instance: int, layer: int, p: int, v: int, n_rays: int, rng) -> dict:
+        from humanliff_tpu_torch.data.tightcap import build_item
+
+        pose = self.poses[p]
+        return build_item(self.body, layer, **self.view(p, v), poses=pose["poses"],
+                          betas=pose["betas"], Rg=pose["Rg"], Th=pose["Th"],
+                          t_pose=self.t_pose, t_world_bounds=self.box, instance=instance,
+                          n_rays=n_rays, rng=rng)
+
+    def batch(self, device, rng, n_rays: int, num_instances: int, B: int = 2) -> dict:
+        """B seeded items as a batch on ``device``."""
+        from humanliff_tpu_torch.cli.recon_train import to_device
+
+        its = [self.item(int(rng.integers(num_instances)), int(rng.integers(4)),
+                         int(rng.integers(len(self.poses))), int(rng.integers(self.n_views)),
+                         n_rays, rng) for _ in range(B)]
+        return to_device({k: np.stack([it[k] for it in its]) for k in its[0]}, device)
+
+
+def _canonical_deform_card_vs_cpu(device, scene, M: int = CANON_DEFORM_POINTS) -> dict:
+    """Check 1: deform_to_canonical_batched at B 2, M points a item around
+    the posed bodies (SMPL space), on the card and on the CPU; the 1-NN and
+    the whole deform timed by CUDA events, and the deform's peak memory."""
+    import torch
+
+    from humanliff_tpu_torch.bodymodel.canonical import (
+        deform_to_canonical_batched,
+        nearest_vertex_batched,
+    )
+    from humanliff_tpu_torch.bodymodel.smpl import lbs_forward_np
+
+    rng = np.random.default_rng(7)
+    B = 2
+    poses = np.stack([p["poses"] for p in scene.poses[:B]])
+    betas = np.stack([p["betas"] for p in scene.poses[:B]])
+    verts = np.stack([lbs_forward_np(scene.body, poses[b], betas[b]) for b in range(B)])
+    near = verts[np.arange(B)[:, None], rng.integers(0, verts.shape[1], size=(B, M))]
+    pts = (near + rng.normal(scale=0.1, size=(B, M, 3))).astype(np.float32)
+    dirs = rng.normal(size=(B, M, 3)).astype(np.float32)
+    big = np.stack([scene.t_pose] * B)
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (poses, betas, big, verts, pts,
+                                                                dirs)]
+    t0 = time.perf_counter()
+    cpu_ids = nearest_vertex_batched(args[4], args[3])
+    cpu_pts, cpu_dirs = deform_to_canonical_batched(scene.body, *args)
+    cpu_s = time.perf_counter() - t0
+    dev_args = [a.to(device) for a in args]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    ids = nearest_vertex_batched(dev_args[4], dev_args[3]).cpu()
+    got_pts, got_dirs = (t.cpu() for t in deform_to_canonical_batched(scene.body, *dev_args))
+    out = {"cpu_s": cpu_s}
+    if device.type == "cuda":
+        out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        out["nn_ms"] = cuda_ms(lambda: nearest_vertex_batched(dev_args[4], dev_args[3]), 5)
+        out["deform_ms"] = cuda_ms(lambda: deform_to_canonical_batched(scene.body, *dev_args), 5)
+    agree = ids == cpu_ids
+    out["id_agree"] = float(agree.double().mean())
+    out["disagree_points"] = int((~agree).sum())
+    a = agree[..., None].expand_as(got_pts)
+    out["pts_err"] = float((got_pts - cpu_pts).abs()[a].max())
+    out["dirs_err"] = float((got_dirs - cpu_dirs).abs()[a].max())
+    say(f"[canonical] check 1, batched deform B {B} x M {M} (V 6,890), card vs CPU: "
+        f"{json.dumps(out)} (bars: ids {CANON_ID_AGREE}, {CANON_DEFORM_ATOL} abs where they "
+        f"agree); disagreeing share {1 - out['id_agree']:.3e}")
+    check(out["id_agree"] >= CANON_ID_AGREE, f"deform ids agree on {out['id_agree']}")
+    check(max(out["pts_err"], out["dirs_err"]) <= CANON_DEFORM_ATOL,
+          f"deform card vs CPU: {out['pts_err']}, {out['dirs_err']}")
+    return out
+
+
+def _canonical_small_card_vs_cpu(device, scene) -> dict:
+    """Check 2: one deterministic canonical step at D 32 (2 instances, 64
+    rays, 16 + 16 samples, the fitted decoder), card vs CPU."""
+    import torch
+
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.train.stage1 import Stage1Config
+
+    cfg = Stage1Config(num_instances=2, triplane_dim=32, use_canonical_space=True,
+                       render=RenderConfig(n_samples=16, n_importance=16, perturb=False,
+                                           density_noise=False))
+    out = small_step_card_vs_cpu(
+        device, cfg, torch.from_numpy(stage1_fixture_planes(2, 4, 32)),
+        lambda dev: scene.batch(dev, np.random.default_rng(3), 64, 2), "canonical small",
+        body_model=scene.body)
+    say(f"[canonical] check 2, one canonical step at D 32 / 64 rays / 16 + 16 samples, card vs "
+        f"CPU: {json.dumps(out)}")
+    return out
+
+
+class DeformTimer:
+    """Wraps ``train.stage1.canonical_deform`` so that, while ``on``, each
+    deform call is timed by CUDA events and kept with its inputs: ``ms()``
+    sums the events (the deform's span on the stream, launch gaps
+    included), ``kernel_ms()`` replays the kept calls under torch.profiler
+    and sums their kernels' device time."""
+
+    def __init__(self, real):
+        self.real, self.on, self.events, self.calls = real, False, [], []
+
+    def __call__(self, batch, body_model):
+        import torch
+
+        deform = self.real(batch, body_model)
+
+        def timed(pts, dirs):
+            if not self.on:
+                return deform(pts, dirs)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = deform(pts, dirs)
+            end.record()
+            self.events.append((start, end))
+            self.calls.append((deform, pts, dirs))
+            return out
+        return timed
+
+    def ms(self) -> float:
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def kernel_ms(self) -> float:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for deform, pts, dirs in self.calls:
+                deform(pts, dirs)
+            torch.cuda.synchronize()
+        return sum(device_us(e) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _canonical_flagship(device, scene, steps: int, config=TIGHTCAP_CONFIG) -> dict:
+    """Check 3: ``steps`` canonical training steps at the TightCap config's
+    width (its instances, D, channels, rays, samples, TV, L1, clamp; fp32),
+    on items built from the scene before the first step: s/step, device
+    ms/step, busy share, the deform's share of the profiled step's kernel
+    time, peak memory, and exactly 2 launches a step."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli.recon_train import stage1_config
+    from humanliff_tpu_torch.train import stage1
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+    from humanliff_tpu_torch.utils.config import parse_with_config, stage1_parser
+
+    args = parse_with_config(stage1_parser(), ["--config", config])
+    cfg = stage1_config(args)
+    check(cfg.use_canonical_space, f"{config} is not a canonical-space config")
+    rng = np.random.default_rng(11)
+    t0 = time.perf_counter()
+    batches = [scene.batch(device, rng, args.n_rand, cfg.num_instances, args.batch_size)
+               for _ in range(steps)]
+    items_s = time.perf_counter() - t0
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = stage1.create_train_state(stage1.init_params(cfg, seed=0, device=device),
+                                      make_stage1_optimizer(args.lrate, args.tri_plane_lrate,
+                                                            args.lrate_decay))
+    generator = torch.Generator(device=device).manual_seed(0)
+    timer = StepTimer(stage1.train_step, device, profile_at=2)
+    deform_timer = DeformTimer(stage1.canonical_deform)
+    stage1.canonical_deform = deform_timer
+    losses = []
+    kernels.reset_launches()
+    try:
+        for i, batch in enumerate(batches):
+            deform_timer.on = device.type == "cuda" and i == timer.profile_at
+            losses.append(float(timer(state, batch, cfg, generator, scene.body)["loss"]))
+    finally:
+        stage1.canonical_deform = deform_timer.real
+    launches = kernels.LAUNCHES["fused_decoder"]
+    deform_kernel_ms = deform_timer.kernel_ms() if device.type == "cuda" else None
+    rec = {"steps": steps, "items_s": items_s, "losses": losses, "launches": launches,
+           "wall_s_all": timer.wall, "table_gb": state.params["planes"].numel() * 4 / 1e9,
+           "wall_s_per_step": statistics.median(timer.wall[3:])}
+    del state, batches
+    check(all(math.isfinite(v) for v in losses), f"non-finite canonical losses: {losses}")
+    if device.type == "cuda":
+        rec.update(event_ms_per_step=statistics.median(timer.event_ms[3:]),
+                   kernel_ms=timer.kernel_ms, kernels=timer.kernels,
+                   busy=timer.kernel_ms / (1e3 * rec["wall_s_per_step"]),
+                   deform_span_ms=deform_timer.ms(), deform_ms=deform_kernel_ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        rec["deform_share"] = rec["deform_ms"] / timer.kernel_ms
+        say(f"[canonical] check 3, {config} width ({cfg.num_instances} instances, D "
+            f"{cfg.triplane_dim}, {args.batch_size} x {args.n_rand} rays, "
+            f"{cfg.render.n_samples} + {cfg.render.n_importance} samples, fp32): {steps} steps; "
+            f"s/step (median of steps 4-{steps}) {rec['wall_s_per_step']:.4f}; device ms/step "
+            f"{rec['event_ms_per_step']:.3f}; profiled step {timer.profile_at + 1}: "
+            f"{timer.kernel_ms:.3f} ms of kernels ({timer.kernels} launches), busy share "
+            f"{rec['busy']:.4f}; the deform's kernels {rec['deform_ms']:.3f} ms "
+            f"({rec['deform_share']:.4f} of the kernel time; its span on the stream "
+            f"{rec['deform_span_ms']:.3f} ms); peak memory {rec['peak_gb']:.3f} GB (table "
+            f"{rec['table_gb']:.3f} GB); {steps} x {args.batch_size} items built in "
+            f"{items_s:.3f} s")
+        say("[canonical] profiled step, operators by kernel ms (ms, calls): "
+            + "; ".join(f"{k} {ms:.3f} ({n})" for k, ms, n in timer.top))
+    say(f"[canonical] losses: {', '.join(f'{v:.6f}' for v in losses)}; per-step wall s: "
+        f"{', '.join(f'{w:.4f}' for w in timer.wall)}")
+    expect_launches(device, launches, 2 * steps,
+                    f"canonical train ({steps} steps: the coarse and the fine pass each)")
+    return rec
+
+
+def _canonical_descent_and_kernel(device, scene, steps: int = 10, D: int = 256,
+                                  n_rays: int = 2048, samples: int = 128) -> dict:
+    """Checks 4 and 5: ``steps`` deterministic canonical steps on one fixed
+    batch (2 instances) must lower the loss by CANON_DESCENT_MIN_DROP; the
+    first step's fine pass inputs (features at deformed points, deformed
+    directions) go through the kernel and decoder_plain, within the kernel
+    phase's fp32 bar."""
+    import torch
+
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.ops.fused_decoder import decoder_plain, fused_decoder
+    from humanliff_tpu_torch.train import stage1
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+
+    cfg = stage1.Stage1Config(num_instances=2, triplane_dim=D, use_canonical_space=True,
+                              render=RenderConfig(n_samples=samples, n_importance=samples,
+                                                  perturb=False, density_noise=False))
+    state = stage1.create_train_state(stage1.init_params(cfg, seed=0, device=device),
+                                      make_stage1_optimizer())
+    batch = scene.batch(device, np.random.default_rng(21), n_rays, 2)
+    captured = []
+    real = stage1.FlatDecoder
+
+    class Capture(real):
+        def __call__(self, feats, dirs=None):
+            if dirs is not None and not captured:
+                captured.append((feats.detach().clone(), dirs.detach().clone(),
+                                 tuple(w.detach().clone() for w in self.weights())))
+            return super().__call__(feats, dirs)
+
+    stage1.FlatDecoder = Capture
+    try:
+        losses = [float(stage1.train_step(state, batch, cfg, body_model=scene.body)["loss"])
+                  for _ in range(steps + 1)]
+    finally:
+        stage1.FlatDecoder = real
+    drop = 1.0 - losses[-1] / losses[0]
+    say(f"[canonical] check 4, descent on a fixed canonical batch (D {D}, {n_rays} rays x 2, "
+        f"{samples} + {samples} samples): loss {losses[0]:.6f} -> {losses[-1]:.6f} after "
+        f"{steps} steps ({drop:.4%}; bar {CANON_DESCENT_MIN_DROP:.2%}): "
+        f"{', '.join(f'{v:.6f}' for v in losses)}")
+    check(all(math.isfinite(v) for v in losses) and drop >= CANON_DESCENT_MIN_DROP,
+          f"the canonical loss did not descend: {losses}")
+    feats, dirs, w = captured[0]
+    with torch.no_grad():
+        rgb, alpha = fused_decoder(w, feats, dirs)
+        ref_rgb, ref_alpha = decoder_plain(w, feats, dirs)
+    sync(device)
+    scale = max(float(ref_rgb.abs().max()), float(ref_alpha.abs().max()))
+    err = max(float((rgb - ref_rgb).abs().max()), float((alpha - ref_alpha).abs().max()))
+    tol = 1e-4 + 1e-5 * scale
+    norms = dirs.norm(dim=-1)
+    say(f"[canonical] check 5, the kernel vs decoder_plain on the first step's fine pass "
+        f"({feats.shape[0]} points, deformed directions |d| {float(norms.min()):.3f}-"
+        f"{float(norms.max()):.3f}): max abs err {err:.3e} (tol {tol:.3e}, max|ref| {scale:.3e})")
+    check(err <= tol and bool(torch.isfinite(rgb).all()),
+          f"the kernel on canonical inputs is {err} from decoder_plain (tol {tol})")
+    return {"losses": losses, "drop": drop, "kernel_err": err, "kernel_points": feats.shape[0],
+            "dir_norm_max": float(norms.max())}
+
+
+def _canonical_eval_committed(device) -> dict:
+    """Check 6: the committed fitted planes (campaign0000, layer 3, fp32) in
+    the JAX reference's canonical scene through make_eval_deform_fn: the
+    128^2 view by the exact tier against the JAX package's, by the fast tier
+    against the card's exact tier, and extract_mesh at 128^3 of the posed
+    subject (the lattice over the posed bounds, deformed); each path's
+    launches against the count worked out from its chunking."""
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.bodymodel.canonical import make_eval_deform_fn
+    from humanliff_tpu_torch.bodymodel.smpl import make_synthetic_body_model
+    from humanliff_tpu_torch.data.raygen import full_image_rays
+    from humanliff_tpu_torch.nerf.fastpath import build_density_grid, render_image_fast
+    from humanliff_tpu_torch.nerf.geometry import extract_mesh
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig, bind_deform, render_image_masked
+
+    with np.load(CANONICAL_REFERENCE) as z:
+        ref = {k: z[k] for k in z.files}
+    body = make_synthetic_body_model(J=24, V=6890, n_betas=10, seed=0)
+    check(float(body.v_template.astype(np.float64).sum()) == float(ref["v_template_sum"]),
+          "the synthetic body model differs from the reference's")
+    S, n = int(ref["image_size"]), int(ref["n_samples"])
+    ro, rd, near, far, mask = full_image_rays(S, S, ref["K"], ref["R_cam"], ref["T_cam"],
+                                              ref["world_bounds"])
+    check(np.array_equal(mask, ref["mask"]), "the reference's in-box rays differ")
+    deform = make_eval_deform_fn(body)
+    args = {k: ref[k] for k in ("poses", "betas", "t_poses", "R", "Th", "smpl_verts")}
+    box = ref["box_warp"]
+    dec = load_fitted_decoder(device)
+    planes = load_fitted_planes(int(ref["layer"])).to(device)
+    cfg = RenderConfig(n_samples=n, n_importance=n, perturb=False, density_noise=False)
+    n_rays = int(mask.sum())
+    out, paths = {}, {}
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    exact = render_image_masked(dec, planes, ro, rd, near, far, mask, box, cfg,
+                                deform_fn=deform, deform_args=args)
+    sync(device)
+    out["exact_s"] = time.perf_counter() - t0
+    paths["canonical exact view"] = kernels.LAUNCHES["fused_decoder"]
+    expect_launches(device, paths["canonical exact view"], 2 * math.ceil(n_rays / RENDER_CHUNK),
+                    "canonical exact view")
+    rgb = exact["rgb"].float().cpu().numpy()
+    out["exact_vs_jax_db"] = psnr_db(rgb[mask], ref["rgb"][mask])
+    out["acc_vs_jax_db"] = psnr_db(exact["acc"].cpu().numpy()[mask], ref["acc"][mask])
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    grid = build_density_grid(dec, planes, box, resolution=int(ref["grid_resolution"]),
+                              build_chunk=GRID_CHUNK)
+    sync(device)
+    out["grid_s"] = time.perf_counter() - t0
+    paths["canonical grid build"] = kernels.LAUNCHES["fused_decoder"]
+    eps = float(ref["early_term_eps"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fast = render_image_fast(dec, planes, grid, ro, rd, near, far, mask, box, cfg,
+                             chunk=RENDER_CHUNK, early_term_eps=eps, deform_fn=deform,
+                             deform_args=args)
+    sync(device)
+    out["fast_s"] = time.perf_counter() - t0
+    paths["canonical fast view"] = kernels.LAUNCHES["fused_decoder"]
+    rays = [torch.from_numpy(a[mask]).to(device) for a in (ro, rd, near, far)]
+    kept = int(kept_rays(grid, rays, torch.from_numpy(box).to(device), cfg, eps,
+                         bind_deform(deform, args)).sum())
+    R = int(ref["grid_resolution"])
+    expect_launches(device, paths["canonical grid build"], math.ceil((R + 1) ** 3 / GRID_CHUNK),
+                    "canonical grid build")
+    expect_launches(device, paths["canonical fast view"], math.ceil(kept / RENDER_CHUNK),
+                    f"canonical fast view ({kept} of {n_rays} rays kept)")
+    out["fast_vs_exact_db"] = psnr_db(fast["rgb"].cpu().numpy()[mask], rgb[mask])
+    fast_bar = float(ref["fast_vs_exact_db"]) - CANON_FAST_MARGIN_DB
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = 128
+    verts, tris = extract_mesh(dec, planes, ref["world_bounds"], resolution=res,
+                               deform_fn=bind_deform(deform, args))
+    out["mesh_s"] = time.perf_counter() - t0
+    paths["canonical mesh"] = kernels.LAUNCHES["fused_decoder"]
+    expect_launches(device, paths["canonical mesh"], math.ceil(res ** 3 / MESH_CHUNK),
+                    f"canonical mesh ({res}^3)")
+    out.update(kept=kept, n_rays=n_rays, verts=len(verts), tris=len(tris),
+               jax_fast_vs_exact_db=float(ref["fast_vs_exact_db"]), paths=paths)
+    say(f"[canonical] check 6, the committed planes through the eval deform, {S}^2 view: exact "
+        f"{out['exact_s']:.3f} s, vs JAX {out['exact_vs_jax_db']:.4f} dB rgb, "
+        f"{out['acc_vs_jax_db']:.4f} dB acc (bar {CANON_EXACT_DB} dB); grid {out['grid_s']:.3f} s"
+        f" + fast {out['fast_s']:.3f} s, {kept} of {n_rays} rays kept, fast vs exact "
+        f"{out['fast_vs_exact_db']:.4f} dB (JAX's own {out['jax_fast_vs_exact_db']:.4f} dB; "
+        f"bar {fast_bar:.4f} dB); mesh {res}^3 of the posed subject {out['mesh_s']:.3f} s, "
+        f"{len(verts)} verts, {len(tris)} tris")
+    check(np.isfinite(rgb).all(), "non-finite canonical render")
+    check(out["exact_vs_jax_db"] >= CANON_EXACT_DB,
+          f"canonical exact tier is {out['exact_vs_jax_db']:.2f} dB from JAX's")
+    check(out["fast_vs_exact_db"] >= fast_bar,
+          f"canonical fast tier is {out['fast_vs_exact_db']:.2f} dB from the exact tier")
+    wb = ref["world_bounds"]
+    check(len(tris) > 0 and np.isfinite(verts).all() and (verts >= wb[0] - 1e-4).all()
+          and (verts <= wb[1] + 1e-4).all(), "empty, non-finite or out-of-box canonical mesh")
+    return out
+
+
+def phase_canonical(device, steps: int = 20, descent=None, deform_points=CANON_DEFORM_POINTS,
+                    config=TIGHTCAP_CONFIG, scene_kw=None) -> dict:
+    """Canonical space's six checks (module docstring). ``descent`` goes to
+    _canonical_descent_and_kernel, ``deform_points`` to check 1, ``config``
+    (a CPU rehearsal's narrower copy of the TightCap config) to check 3,
+    ``scene_kw`` to CanonicalScene."""
+    scene = CanonicalScene(**(scene_kw or {}))
+    out = {"deform": _canonical_deform_card_vs_cpu(device, scene, deform_points),
+           "small": _canonical_small_card_vs_cpu(device, scene),
+           "flagship": _canonical_flagship(device, scene, steps, config)}
+    out["descent"] = _canonical_descent_and_kernel(device, scene, **(descent or {}))
+    out["eval"] = _canonical_eval_committed(device)
+    return out
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1747,10 +2277,21 @@ def main(argv=None) -> int:
                    f"peak {flag['peak_gb']:.3f} GB, save {flag['saves'][-1][1]:.3f} s / "
                    f"{flag['saves'][-1][2]:.3f} GB; eval vs JAX max "
                    f"{recon['eval']['max_abs_gap_db']:.5f} dB")
+    with Phase("canonical", cuda_sync):
+        canon = phase_canonical(device)
+        paths["canonical train"] = canon["flagship"]["launches"]
+        paths.update(canon["eval"]["paths"])
+    cf = canon["flagship"]
+    summary.append(f"canonical {cf['wall_s_per_step']:.4f} s/step ({cf['event_ms_per_step']:.3f} "
+                   f"device ms, busy {cf['busy']:.4f}, deform share {cf['deform_share']:.4f}), "
+                   f"peak {cf['peak_gb']:.3f} GB; 1-NN {canon['deform']['nn_ms']:.3f} ms, deform "
+                   f"{canon['deform']['deform_ms']:.3f} ms; exact vs JAX "
+                   f"{canon['eval']['exact_vs_jax_db']:.3f} dB")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "
-        f"fine pass {kern['stage1_backward_ms']:.4f} ms")
+        f"fine pass {kern['stage1_backward_ms']:.4f} ms; on a canonical fine pass's inputs "
+        f"{canon['descent']['kernel_err']:.3e} max abs")
     say(json.dumps({"kernels": [{
         "name": "fused_decoder",
         "route": "cuda",
@@ -1767,6 +2308,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "main_shapes": kern["main_shapes"],
         "stage1_backward_ms": kern["stage1_backward_ms"],
+        "canonical_fine_pass_max_abs_err": canon["descent"]["kernel_err"],
     }]}))
     say(nvidia_smi_line())
     say(json.dumps({"ok": True, "device": {

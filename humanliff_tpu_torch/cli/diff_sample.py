@@ -34,10 +34,17 @@ Differences from the JAX CLI:
   fused kernel takes fp32 weights); the JAX CLI casts the weights to bf16 too.
 - ``--image_scaling`` scales the intrinsics of ``--cameras_json`` cameras;
   the JAX CLI passes it only to the capture datasets.
-- Not accepted: ``--auto_plan``, ``--parallel_window``, ``--parallel_tol``,
-  ``--view_dataset`` (only the orbit or ``--cameras_json`` views are ported),
-  ``--data_root``, ``--smpl_model_path``, ``--smplx_model_dir``; the model
-  flags ``use_3d_aware`` and ``use_checkpoint`` (not ported). One device only.
+- Not accepted: ``--auto_plan``, ``--parallel_window``, ``--parallel_tol``;
+  the model flags ``use_3d_aware`` and ``use_checkpoint`` (not ported). One
+  device only.
+
+``--view_dataset synbody`` or ``tightcap`` decodes the capture's novel views
+145 onward (``--data_root``; the SMPL-X models of ``--smplx_model_dir``, or
+the SMPL model ``--smpl_model_path``): full-image rays against the posed
+bounds. TightCap renders in canonical space through the inverse-LBS deform of
+each view's SMPL fit, its mesh in the big pose's bounds; the body model and
+its arrays on the device are loaded once per path (``load_body_model``'s
+cache).
 """
 
 from __future__ import annotations
@@ -52,8 +59,15 @@ import time
 import numpy as np
 import torch
 
+from humanliff_tpu_torch.bodymodel.canonical import make_eval_deform_fn
+from humanliff_tpu_torch.bodymodel.smpl import find_smplx_model, load_body_model
+from humanliff_tpu_torch.cli.recon_test import deform_args
 from humanliff_tpu_torch.compat.from_jax import decoder_state_dict, load_unet_npz
-from humanliff_tpu_torch.data.view_datasets import NovelViewCameras
+from humanliff_tpu_torch.data.view_datasets import (
+    NovelViewCameras,
+    SynBodyViewDataset,
+    TightCapViewDataset,
+)
 from humanliff_tpu_torch.eval.fidelity import batch_fidelity, chain_fidelity_report
 from humanliff_tpu_torch.mesh.io import write_ply
 from humanliff_tpu_torch.models.factory import (
@@ -109,8 +123,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_ddim", type=_bool, default=False)
     p.add_argument("--decode", action="store_true",
                    help="render novel views + mesh with the Stage-1 decoder")
+    p.add_argument("--view_dataset", type=str, default="orbit",
+                   choices=("orbit", "synbody", "tightcap"),
+                   help="views and bounds of the decode: a capture's novel views "
+                        "(synbody, tightcap) or the procedural orbit")
+    p.add_argument("--data_root", type=str, default=None,
+                   help="capture root for --view_dataset synbody/tightcap")
+    p.add_argument("--smpl_model_path", type=str, default="assets/SMPL_NEUTRAL.pkl")
+    p.add_argument("--smplx_model_dir", type=str, default="assets",
+                   help="directory holding SMPLX_{GENDER}.npz/.pkl for --view_dataset synbody")
     p.add_argument("--cameras_json", type=str, default=None,
-                   help="use this cameras.json instead of the procedural orbit")
+                   help="orbit views: use this cameras.json instead of the procedural orbit")
     p.add_argument("--image_scaling", type=float, default=1.0)
     p.add_argument("--num_views", type=int, default=40)
     p.add_argument("--render_size", type=int, default=512)
@@ -180,48 +203,83 @@ def _load_decoder(args, device) -> NeRFDecoder:
     return decoder.to(device).eval()
 
 
+def _view_items(args, layer_idx: int):
+    """The decode's view items and their deform (None in world space): the
+    orbit's (or ``--cameras_json``'s) views, or a capture's novel views 145
+    onward (JAX diff_sample.py:133-182)."""
+    if args.view_dataset == "orbit":
+        if args.cameras_json is None:
+            print("[decode] NOTE: procedural-orbit cameras and default bounds "
+                  "(no --cameras_json given)")
+        cams = NovelViewCameras(image_size=args.render_size, cameras_json=args.cameras_json,
+                                image_scaling=args.image_scaling)
+        return [dict(cams.rays(v, ORBIT_BOUNDS), box_warp=ORBIT_BOUNDS)
+                for v in range(args.num_views)], None
+    views = list(range(145, 145 + args.num_views))
+    deform_fn = None
+    if args.view_dataset == "synbody":
+        models = {g: load_body_model(find_smplx_model(args.smplx_model_dir, g))
+                  for g in ("male", "female", "neutral")}
+        ds = SynBodyViewDataset(data_root=args.data_root, body_models=models,
+                                image_scaling=args.image_scaling, layer_idx=layer_idx,
+                                output_views=views)
+    else:
+        body = load_body_model(args.smpl_model_path)
+        ds = TightCapViewDataset(data_root=args.data_root, body_model=body,
+                                 image_scaling=args.image_scaling, layer_idx=layer_idx,
+                                 output_views=views)
+        deform_fn = make_eval_deform_fn(body)
+    return [ds.item(i) for i in range(min(args.num_views, len(ds)))], deform_fn
+
+
 def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device) -> None:
-    """Render each sample's views to PNGs and a video, and export its mesh
-    (triplane_sample_layered.py:155-207). All views go through one render
-    call: they share the box."""
-    S = args.render_size
-    if args.cameras_json is None:
-        print("[decode] NOTE: procedural-orbit cameras and default bounds "
-              "(no --cameras_json given)")
-    cams = NovelViewCameras(image_size=S, cameras_json=args.cameras_json,
-                            image_scaling=args.image_scaling)
-    items = [cams.rays(v, ORBIT_BOUNDS) for v in range(args.num_views)]
-    rays = {k: np.concatenate([it[k] for it in items])
-            for k in ("rays_o", "rays_d", "near", "far", "ray_mask")}
+    """Render each sample's views to PNGs and a video, and export its mesh in
+    the first view's box (triplane_sample_layered.py:155-207). Views that
+    share the box and need no deform go through one render call; canonical
+    views render one by one, each with its own deform arguments."""
+    items, deform_fn = _view_items(args, LAYER_NAMES.index(layer_name))
+    shapes = [(int(it["hw"][0]), int(it["hw"][1])) for it in items]
+    box = np.asarray(items[0]["box_warp"], np.float32)
+    one_call = deform_fn is None and all(
+        np.array_equal(np.asarray(it["box_warp"], np.float32), box) for it in items)
+    groups = ([{k: np.concatenate([it[k] for it in items])
+                for k in ("rays_o", "rays_d", "near", "far", "ray_mask")}] if one_call
+              else items)
     dtype = torch.bfloat16 if args.render_bf16 else torch.float32
     cfg = RenderConfig(n_samples=128, n_importance=128, perturb=False, density_noise=False)
-    render_args = (rays["rays_o"], rays["rays_d"], rays["near"], rays["far"],
-                   rays["ray_mask"], ORBIT_BOUNDS, cfg)
 
     for si, sample in enumerate(samples):
         planes = planes_image_to_triplane(
             torch.from_numpy(np.asarray(sample)).to(device=device, dtype=dtype)).contiguous()
         t0 = time.perf_counter()
-        if args.fast_render:
-            grid = build_density_grid(decoder, planes, ORBIT_BOUNDS,
-                                      resolution=args.grid_resolution)
-            out = render_image_fast(decoder, planes, grid, *render_args, outputs=("rgb",),
-                                    early_term_eps=args.early_term_eps)
-        else:
-            out = render_image_masked(decoder, planes, *render_args, outputs=("rgb",))
-        frames = (out["rgb"].clamp(0, 1) * 255).to(torch.uint8).reshape(-1, S, S, 3)
-        frames = list(frames.cpu().numpy())
+        grid = (build_density_grid(decoder, planes, box, resolution=args.grid_resolution)
+                if args.fast_render else None)
+        rgb = []
+        for g in groups:
+            render_args = (g["rays_o"], g["rays_d"], g["near"], g["far"], g["ray_mask"],
+                           np.asarray(g.get("box_warp", box), np.float32), cfg)
+            dargs = None if deform_fn is None else deform_args(g)
+            if grid is not None:
+                out = render_image_fast(decoder, planes, grid, *render_args, outputs=("rgb",),
+                                        early_term_eps=args.early_term_eps,
+                                        deform_fn=deform_fn, deform_args=dargs)
+            else:
+                out = render_image_masked(decoder, planes, *render_args, outputs=("rgb",),
+                                          deform_fn=deform_fn, deform_args=dargs)
+            rgb.append((out["rgb"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
+        rgb = np.concatenate(rgb)
+        frames = [f.reshape(H, W, 3) for f, (H, W) in
+                  zip(np.split(rgb, np.cumsum([H * W for H, W in shapes])[:-1]), shapes)]
         render_s = time.perf_counter() - t0
         for v, img in enumerate(frames):
             write_png(os.path.join(args.out_dir, f"{layer_name}_s{si}_v{v:03d}.png"), img)
         write_video(os.path.join(args.out_dir, f"{layer_name}_s{si}.mp4"), frames, fps=20)
 
         t0 = time.perf_counter()
-        verts, tris = extract_mesh(decoder, planes, ORBIT_BOUNDS,
-                                   resolution=args.mesh_resolution)
+        verts, tris = extract_mesh(decoder, planes, box, resolution=args.mesh_resolution)
         mesh_s = time.perf_counter() - t0
         write_ply(os.path.join(args.out_dir, f"{layer_name}_s{si}.ply"), verts, tris)
-        print(f"decoded sample {si}: {args.num_views} views in {render_s:.3f} s "
+        print(f"decoded sample {si}: {len(frames)} views in {render_s:.3f} s "
               f"({'fast' if args.fast_render else 'exact'} tier), mesh "
               f"{len(verts)} verts / {len(tris)} tris at {args.mesh_resolution}^3 "
               f"in {mesh_s:.3f} s")

@@ -27,7 +27,12 @@ import sys
 import numpy as np
 import torch
 
-from humanliff_tpu_torch.cli.recon_train import build_dataset, stage1_config, to_device
+from humanliff_tpu_torch.cli.recon_train import (
+    build_dataset,
+    canonical_body_model,
+    stage1_config,
+    to_device,
+)
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.stage1_ft import (
     FinetuneConfig,
@@ -65,12 +70,10 @@ def main(argv=None):
     expdir = os.path.join(args.basedir, args.expname)
     shared = load_shared(expdir, device)
 
-    dataset, _ = build_dataset(args)
+    dataset, body_model = build_dataset(args)
+    body_model = canonical_body_model(args, body_model)
     # As in the JAX CLI, the fine-tune renders in fp32 whatever --use_bf16 says.
     cfg = dataclasses.replace(stage1_config(args), use_bf16=False)
-    if cfg.use_canonical_space:
-        raise NotImplementedError("--use_canonical_space needs the SMPL body models "
-                                  "(ROADMAP A11)")
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     per_layer = getattr(dataset, "poses_num", 1) * getattr(dataset, "views_num", 64)
@@ -92,11 +95,13 @@ def main(argv=None):
         chunk = subjects[g0:g0 + group]
         if group == 1:
             finetune_subject(shared, lambda layer, s=chunk[0]: subject_batch(s, layer), cfg,
-                             ft_cfg, args.out_dir, f"subject{chunk[0]:04d}", generator)
+                             ft_cfg, args.out_dir, f"subject{chunk[0]:04d}", generator,
+                             body_model=body_model)
         else:
             finetune_subjects_batched(
                 shared, lambda pos, layer, c=chunk: subject_batch(c[pos], layer), cfg, ft_cfg,
-                args.out_dir, [f"subject{s:04d}" for s in chunk], generator)
+                args.out_dir, [f"subject{s:04d}" for s in chunk], generator,
+                body_model=body_model)
         print(f"finished subjects {chunk}")
 
 

@@ -11,11 +11,14 @@ renders the held-out views of each layer (``eval/harness.py``) and writes
 pred/gt PNGs, ``metrics.json`` and ``metrics.npy`` under ``--savedir``
 (default ``{expdir}/testset_{step:06d}``).
 
+With ``--use_canonical_space true`` (TightCap) each view renders through the
+inverse-LBS deform of its item's SMPL fit, ``box_warp`` the big pose's bounds
+(all_test.py:231-327).
+
 Differences from the JAX CLI: ``--device`` (default ``cuda``; ``cpu`` on
-request). The synthetic dataset's held-out views are its ``test_item``s (the
-JAX CLI asks every dataset for ``poses_num``, which the synthetic one lacks).
-SynBody/TightCap and the canonical-space eval wait for the body models
-(ROADMAP A11).
+request). Held-out views are each dataset's ``test_item(subject, layer,
+view)`` (the JAX CLI asks every dataset for ``poses_num``, which the
+synthetic one lacks).
 """
 
 from __future__ import annotations
@@ -27,13 +30,22 @@ import sys
 import numpy as np
 import torch
 
-from humanliff_tpu_torch.cli.recon_train import build_dataset
+from humanliff_tpu_torch.bodymodel.canonical import make_eval_deform_fn
+from humanliff_tpu_torch.cli.recon_train import build_dataset, canonical_body_model
 from humanliff_tpu_torch.eval.harness import default_test_views, evaluate_views
 from humanliff_tpu_torch.nerf.decoder import FlatDecoder, NeRFDecoder
 from humanliff_tpu_torch.nerf.renderer import RenderConfig
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils.config import device_for
+
+
+DEFORM_KEYS = ("poses", "betas", "t_poses", "R", "Th", "smpl_verts")
+
+
+def deform_args(item) -> dict:
+    """A canonical-space item's arguments of the eval deform (JAX recon_test.py:68-70)."""
+    return {k: item[k] for k in DEFORM_KEYS}
 
 
 def build_parser():
@@ -60,10 +72,12 @@ def main(argv=None):
     decoder = decoder.to(device).eval()
     del restored
     savedir = args.savedir or os.path.join(expdir, f"testset_{step:06d}")
-    if args.use_canonical_space:
-        raise NotImplementedError("--use_canonical_space needs the SMPL body models "
-                                  "(ROADMAP A11)")
-    dataset, _ = build_dataset(args)
+    dataset, body_model = build_dataset(args)
+    body_model = canonical_body_model(args, body_model)
+    deform_fn = deform_args_fn = None
+    if body_model is not None:
+        deform_fn = make_eval_deform_fn(body_model)
+        deform_args_fn = deform_args
     cfg = RenderConfig(n_samples=args.n_samples, n_importance=args.n_importance,
                        perturb=False, density_noise=False, white_bkgd=args.white_bkgd)
 
@@ -73,11 +87,14 @@ def main(argv=None):
             os.path.join(args.triplane_dir, f"subject{subj:04d}_002000.npz"))
         layers = [args.test_layer_id] if args.test_layer_id is not None else range(4)
         for layer in layers:
+            # A capture dataset holds views_num views; the synthetic one renders any view.
             items = [dataset.test_item(subj, layer, v)
-                     for v in default_test_views(layer, args.test_layer_id)]
+                     for v in default_test_views(layer, args.test_layer_id)
+                     if v < getattr(dataset, "views_num", v + 1)]
             planes = torch.from_numpy(np.ascontiguousarray(planes_all[layer])).to(device)
             agg = evaluate_views(decoder, planes, items, cfg, savedir=savedir,
-                                 tag=f"s{subj:04d}_l{layer}", fast=args.fast_eval)
+                                 tag=f"s{subj:04d}_l{layer}", fast=args.fast_eval,
+                                 deform_fn=deform_fn, deform_args_fn=deform_args_fn)
             all_metrics[f"subject{subj}_layer{layer}"] = agg
             print(f"subject {subj} layer {layer}: {agg}")
 

@@ -16,8 +16,11 @@ Differences from the JAX CLI:
 
 - ``--device`` (default ``cuda``) raises when CUDA is missing; ``cpu`` runs
   on the CPU. One device, no mesh.
-- ``--data_set_type SynBody`` and ``TightCap`` raise: their loaders need the
-  SMPL/SMPL-X model files, which are not in the repository (ROADMAP A11).
+- ``--data_set_type SynBody`` reads the SMPL-X models
+  ``{--smplx_model_dir}/SMPLX_{GENDER}.npz`` (or ``.pkl``), ``TightCap`` the
+  SMPL model ``--smpl_model_path`` (files not in the repository:
+  assets/README.md); ``--use_canonical_space true`` (the TightCap config)
+  trains through the inverse-LBS deform of the TightCap items' SMPL fits.
 - Metrics stay on the device until ``--i_print``; the JAX CLI's per-step
   readback (a workaround for its remote TPU) is not ported. The log also
   carries ``loader_wait_per_iter``, the seconds a step waited for its batch.
@@ -54,7 +57,8 @@ AUX_KEYS = ("loss", "img_loss", "acc_loss", "tv", "psnr")
 
 
 def build_dataset(args):
-    """The Stage-1 item source and its body model (None in world space)."""
+    """The Stage-1 item source and the body model of its canonical-space
+    deform (TightCap's SMPL; None for the world-space datasets)."""
     if args.data_set_type == "synthetic":
         from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
 
@@ -65,11 +69,27 @@ def build_dataset(args):
             tight_bounds=bool(args.synthetic_tight_bounds),
         )
         return ds, None
-    if args.data_set_type in ("SynBody", "TightCap"):
-        raise NotImplementedError(
-            f"--data_set_type {args.data_set_type}: its loader and body models need the "
-            "SMPL/SMPL-X model files, which are not in the repository (assets/README.md); "
-            "see ROADMAP A11. --data_set_type synthetic runs without them.")
+    if args.data_set_type == "SynBody":
+        from humanliff_tpu_torch.bodymodel.smpl import find_smplx_model, load_body_model
+        from humanliff_tpu_torch.data.synbody import SynBodyDataset
+
+        models = {g: load_body_model(find_smplx_model(args.smplx_model_dir, g))
+                  for g in ("male", "female", "neutral")}
+        return SynBodyDataset(
+            data_root=args.data_root, body_models=models, num_instances=args.num_instance,
+            pose_start=args.start, pose_interval=args.interval, poses_num=args.poses_num,
+            views_num=args.views_num, n_rays=args.n_rand, image_scaling=args.image_scaling,
+            layer_idx=args.layer_idx), None
+    if args.data_set_type == "TightCap":
+        from humanliff_tpu_torch.bodymodel.smpl import load_body_model
+        from humanliff_tpu_torch.data.tightcap import TightCapDataset
+
+        body = load_body_model(args.smpl_model_path)
+        return TightCapDataset(
+            data_root=args.data_root, body_model=body, num_instances=args.num_instance,
+            pose_start=args.start, pose_interval=args.interval, poses_num=args.poses_num,
+            views_num=args.views_num, n_rays=args.n_rand, image_scaling=args.image_scaling,
+            layer_idx=args.layer_idx), body
     raise ValueError(args.data_set_type)
 
 
@@ -87,6 +107,14 @@ def stage1_config(args) -> Stage1Config:
         use_canonical_space=args.use_canonical_space,
         use_bf16=args.use_bf16,
     )
+
+
+def canonical_body_model(args, body_model):
+    """The body model a ``--use_canonical_space`` run deforms with; raises
+    for a dataset without one."""
+    if args.use_canonical_space and body_model is None:
+        raise ValueError("--use_canonical_space needs a body model: --data_set_type TightCap")
+    return body_model if args.use_canonical_space else None
 
 
 def to_device(batch, device):
@@ -125,11 +153,9 @@ def main(argv=None):
             f.write(f"{k} = {getattr(args, k)}\n")
     log = loglib.configure(expdir, ["stdout", "csv", "json"])
 
-    dataset, _ = build_dataset(args)
+    dataset, body_model = build_dataset(args)
+    body_model = canonical_body_model(args, body_model)
     cfg = stage1_config(args)
-    if cfg.use_canonical_space:
-        raise NotImplementedError("--use_canonical_space needs the SMPL body models "
-                                  "(ROADMAP A11)")
     tx = make_stage1_optimizer(args.lrate, args.tri_plane_lrate, args.lrate_decay)
     state = create_train_state(init_params(cfg, args.seed, device), tx)
 
@@ -158,7 +184,7 @@ def main(argv=None):
             t_wait = time.perf_counter()
             batch = to_device(next(it), device)
             wait += time.perf_counter() - t_wait
-            aux_buf.append(train_step(state, batch, cfg, generator))
+            aux_buf.append(train_step(state, batch, cfg, generator, body_model))
             step = state.step
             if step % args.i_print == 0:
                 stacked = torch.stack([torch.stack([a[k] for a in aux_buf]) for k in AUX_KEYS])

@@ -20,7 +20,8 @@ class BatchLoader:
 
     ``item_fn(idx, rng) -> dict[str, np.ndarray]``; items are stacked along
     axis 0. Each of ``num_workers`` threads draws item indices uniformly with
-    replacement from its own generator, seeded ``seed + 1 + worker``.
+    replacement from its own generator, seeded ``seed + 1 + worker``. An
+    exception in a worker is raised by the iterator, not left to hang it.
     """
 
     def __init__(
@@ -48,18 +49,26 @@ class BatchLoader:
         rng = np.random.default_rng(seed)
         while not self._stop.is_set():
             idxs = rng.integers(0, self.num_items, self.batch_size)
-            items = [self.item_fn(int(i), rng) for i in idxs]
-            batch = {k: np.stack([it[k] for it in items], axis=0) for k in items[0]}
+            try:
+                items = [self.item_fn(int(i), rng) for i in idxs]
+                batch = {k: np.stack([it[k] for it in items], axis=0) for k in items[0]}
+            except Exception as exc:  # handed to the consumer
+                batch = exc
             while not self._stop.is_set():
                 try:
                     self._q.put(batch, timeout=1.0)
                     break
                 except queue.Full:
                     continue
+            if isinstance(batch, Exception):
+                return
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
-            yield self._q.get()
+            batch = self._q.get()
+            if isinstance(batch, Exception):
+                raise batch
+            yield batch
 
     def close(self, timeout: float = 5.0):
         """Stop the workers and wait for them."""

@@ -8,9 +8,10 @@ crop (all_test.py:19-42, :186-195), prints per-image wall-clock, and writes
 matches :100-109: base views [145, 165] offset by 5 x layer, or the 145-185
 range for a single ``--test_layer_id``.
 
-Canonical-space (TightCap) eval needs the body models (ROADMAP A11): there is
-no ``deform_fn`` here. PNGs are written by the port's stdlib writer
-(``utils/video.py``), not imageio.
+Canonical-space (TightCap) eval renders through ``deform_fn`` with each
+view's ``deform_args_fn(item)`` (``bodymodel/canonical.py::make_eval_deform_fn``).
+PNGs are written by the port's stdlib writer (``utils/video.py``), not
+imageio.
 """
 
 from __future__ import annotations
@@ -54,6 +55,8 @@ def evaluate_views(
     tag: str = "subject",
     fast: bool = False,
     grid_resolution: int = 128,
+    deform_fn=None,
+    deform_args_fn=None,
 ) -> Dict[str, float]:
     """Render each full-image view item (a dataset's ``test_item``) with
     ``planes`` ``(3, C3, D, D)`` on their device and score it; returns the
@@ -63,7 +66,8 @@ def evaluate_views(
     renders every pixel and zeroes the rest (all_test.py:178), so the outputs
     match. ``fast=True`` renders by the density-grid fast tier
     (``nerf/fastpath.py``: one grid per subject and box, empty rays
-    terminated, exact fine pass)."""
+    terminated, exact fine pass). ``deform_fn`` enables canonical-space
+    eval; ``deform_args_fn(item)`` gives its per-view SMPL arrays."""
     if savedir:
         os.makedirs(savedir, exist_ok=True)
     lpips = lpips_fn()
@@ -72,6 +76,7 @@ def evaluate_views(
     for vi, item in enumerate(view_items):
         H, W = (int(item["hw"][0]), int(item["hw"][1]))
         t0 = time.time()
+        dargs = None if deform_args_fn is None else deform_args_fn(item)
         if grids is not None:
             item_box = np.asarray(item["box_warp"], np.float32)
             out = render_image_fast(
@@ -81,6 +86,7 @@ def evaluate_views(
                 # Terminated in-mask rays must match the exact tier's
                 # background compositing, and acc/depth are unused downloads.
                 bg_color=1.0 if cfg.white_bkgd else 0.0, outputs=("rgb",),
+                deform_fn=deform_fn, deform_args=dargs,
             )
             if cfg.white_bkgd:
                 # The exact tier (fill 0.0) and the reference protocol leave
@@ -92,6 +98,7 @@ def evaluate_views(
             out = render_image_masked(
                 decoder, planes, item["rays_o"], item["rays_d"], item["near"], item["far"],
                 item["ray_mask"], item["box_warp"], cfg, chunk=chunk,
+                deform_fn=deform_fn, deform_args=dargs,
             )
         _sync(planes.device)
         rgb = out["rgb"].float().cpu().numpy().reshape(H, W, 3)

@@ -16,20 +16,25 @@ grid build (density-only, one launch per ``build_chunk`` lattice points) and
 each fine tile (full, one launch per ``chunk`` kept rays). The JAX package's
 host readback of the active-ray bitmap, its host-side scatter, its padding of
 tiles to whole shapes and its serialisation were for a slow host link to the
-TPU; here the rays are compacted and scattered on the device. ``deform_fn``
-(canonical-space decoding for TightCap) is not ported yet.
+TPU; here the rays are compacted and scattered on the device.
+
+Canonical space (TightCap): the grid lives in the planes' own (canonical)
+space and is built without the deform; the coarse phase deforms its sample
+points before the grid lookup, and the fine pass its points and directions,
+through ``deform_fn`` (and ``deform_args``) as in ``nerf/renderer.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from humanliff_tpu_torch.nerf.renderer import (
     RenderConfig,
+    bind_deform,
     masked_rays,
     shade_rays,
 )
@@ -126,12 +131,16 @@ class GridCache:
 
 
 def coarse_from_grid(grid: DensityGrid, rays_o, rays_d, near, far, box_warp,
-                     cfg: RenderConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                     cfg: RenderConfig, deform: Optional[Callable] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The grid's coarse phase for (R,) rays: the merged, sorted depths
     (R, n_samples + n_importance) and each ray's estimated accumulated alpha
-    (R,), summed without the 1e10 tail interval."""
+    (R,), summed without the 1e10 tail interval. ``deform`` ``(pts, None) ->
+    (pts, None)`` moves the sample points into the grid's frame first."""
     z = stratified_z_vals(near, far, cfg.n_samples)
     pts = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]).reshape(-1, 3)
+    if deform is not None:
+        pts, _ = deform(pts, None)
     dens = sample_grid_density(grid, pts, box_warp).reshape(z.shape)
     weights = coarse_weights(dens, z, rays_d)
     new_z = sample_pdf(0.5 * (z[..., 1:] + z[..., :-1]), weights[..., 1:-1],
@@ -157,6 +166,8 @@ def render_image_fast(
     outputs: Tuple[str, ...] = ("rgb", "acc", "depth"),
     max_rays_in_flight: int = 1 << 21,
     coarse_chunk: int = 1 << 18,
+    deform_fn: Optional[Callable] = None,
+    deform_args=None,
 ) -> Dict[str, torch.Tensor]:
     """Full-image render of the in-box rays: the grid's coarse phase, then the
     exact fine pass on the rays it keeps. Same layout as
@@ -168,8 +179,10 @@ def render_image_fast(
     ``max_rays_in_flight`` rays go through both phases in turn, which bounds
     the per-ray depths held on the device (rays x (n_samples + n_importance)
     x 4 B: 2.1 GB for 2M rays at 128 + 128). The coarse phase runs
-    ``coarse_chunk`` rays at a time, the fine pass ``chunk``.
+    ``coarse_chunk`` rays at a time, the fine pass ``chunk``. ``deform_fn``
+    and ``deform_args``: canonical space (module docstring).
     """
+    deform = bind_deform(deform_fn, deform_args)
     idx_all, (ro, rd, nr, fr), box, full = masked_rays(
         planes.device, rays_o, rays_d, near, far, mask, box_warp, bg_color, outputs)
     eval_cfg = dataclasses.replace(cfg, perturb=False, density_noise=False)
@@ -180,7 +193,7 @@ def render_image_fast(
         for s in range(g0, min(g0 + group, idx_all.shape[0]), coarse_chunk):
             sl = slice(s, min(s + coarse_chunk, g0 + group))
             z_t, acc_est = coarse_from_grid(grid, ro[sl], rd[sl], nr[sl], fr[sl], box,
-                                            eval_cfg)
+                                            eval_cfg, deform)
             z_tiles.append(z_t)
             keep_tiles.append(acc_est > early_term_eps)
         z_all = torch.cat(z_tiles)
@@ -190,7 +203,7 @@ def render_image_fast(
             t = keep[s:s + chunk]
             tg = t + g0
             out = shade_rays(decoder, planes, ro[tg], rd[tg], nr[tg], fr[tg], z_all[t], box,
-                             eval_cfg.white_bkgd)
+                             eval_cfg.white_bkgd, deform=deform)
             dest = idx_all[g][t]
             for k in full:
                 full[k][dest] = out[k]

@@ -6,12 +6,14 @@ planes' device, ``chunk`` points per decoder call (the fused decoder's
 density-only kernel on CUDA), and the whole grid comes to the host once. The
 surface is that of the negated density at iso 0 after one smoothing pass
 (mcubes' convention: values below iso are inside), rescaled into ``bounds``.
-``deform_fn`` is not ported yet.
+A ``deform_fn`` ``(pts, None) -> (pts, None)`` moves the lattice points before
+the lookup (JAX geometry.py:54-55); a view's deform binds its arguments with
+``nerf.renderer.bind_deform``.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,7 +24,8 @@ from humanliff_tpu_torch.ops.triplane import sample_triplane_features
 
 @torch.no_grad()
 def eval_density_grid(decoder, planes: torch.Tensor, bounds, resolution: int = 512,
-                      chunk: int = 1 << 22) -> np.ndarray:
+                      chunk: int = 1 << 22, deform_fn: Optional[Callable] = None
+                      ) -> np.ndarray:
     """Raw density ``grid[x, y, z]`` (resolution^3, fp32 numpy) over ``bounds``
     (2, 3). The lattice is ``np.linspace`` in fp32 per axis, as in the JAX
     package; features reach the decoder in fp32 whatever the planes' dtype."""
@@ -36,16 +39,18 @@ def eval_density_grid(decoder, planes: torch.Tensor, bounds, resolution: int = 5
     for s in range(0, n ** 3, chunk):
         i = torch.arange(s, min(s + chunk, n ** 3), device=device)
         pts = torch.stack([lin[0][i // (n * n)], lin[1][(i // n) % n], lin[2][i % n]], dim=-1)
+        if deform_fn is not None:
+            pts, _ = deform_fn(pts, None)
         grid[s:s + i.numel()] = decoder(sample_triplane_features(planes, pts, box))[1][:, 0]
     return grid.reshape(n, n, n).cpu().numpy()
 
 
 def extract_mesh(decoder, planes: torch.Tensor, bounds, resolution: int = 512,
-                 threshold: float = 0.0, smooth_iters: int = 1
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Marching-cubes mesh of the density field: verts (V, 3) in world
-    coordinates and tris (T, 3) (renderer.py:341-348)."""
-    u = -eval_density_grid(decoder, planes, bounds, resolution)
+                 threshold: float = 0.0, smooth_iters: int = 1,
+                 deform_fn: Optional[Callable] = None) -> Tuple[np.ndarray, np.ndarray]:
+    """Marching-cubes mesh of the density field: verts (V, 3) in the
+    coordinates of ``bounds`` and tris (T, 3) (renderer.py:341-348)."""
+    u = -eval_density_grid(decoder, planes, bounds, resolution, deform_fn=deform_fn)
     if smooth_iters:
         u = smooth_grid(u, iters=smooth_iters)
     verts, tris = marching_cubes(u, iso=threshold)

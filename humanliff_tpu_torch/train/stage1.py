@@ -22,8 +22,15 @@ first split only, so the two packages agree only on the deterministic path.
 and directions reach the decoder kernel in bf16, the decoder's weights stay
 fp32. The JAX package casts the decoder's weights to bf16 as well, so its bf16
 MLP rounds where this one does not (tests/test_torch_stage1.py names the
-gap). Canonical-space (TightCap) training needs the body models (ROADMAP A11)
-and raises.
+gap).
+
+Canonical space (``use_canonical_space``, TightCap): batches carry each
+item's SMPL arrays (``poses``, ``betas``, ``t_poses``, ``smpl_verts``, ``R``,
+``Th``); every sample point, and in the fine pass every view direction, goes
+from world to SMPL space (directions translated by Th too, as the reference
+does) and by the batched inverse-LBS (``bodymodel/canonical.py``) into the
+big pose before the lookup, with ``box_warp`` the big pose's bounds. The step
+still launches the decoder kernel twice, coarse and fine.
 """
 
 from __future__ import annotations
@@ -34,6 +41,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from humanliff_tpu_torch.bodymodel.canonical import (
+    deform_to_canonical_batched,
+    world_to_smpl,
+)
+from humanliff_tpu_torch.bodymodel.smpl import BodyModel
 from humanliff_tpu_torch.nerf.decoder import FlatDecoder, NeRFDecoder, flatten_state_dict
 from humanliff_tpu_torch.nerf.renderer import RenderConfig, render_rays_batch
 from humanliff_tpu_torch.train.optim import Stage1Optimizer, clamp_planes_
@@ -52,7 +64,7 @@ class Stage1Config:
     l1_loss_coef: float = 1e-4
     acc_loss_coef: float = 0.1
     use_clamp: bool = True
-    use_canonical_space: bool = False  # TightCap mode: not ported (ROADMAP A11)
+    use_canonical_space: bool = False  # TightCap mode
     use_bf16: bool = False  # bf16 render inputs (fp32 master planes and decoder)
 
 
@@ -103,23 +115,39 @@ def _masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) ->
     return se.sum() / torch.clamp((torch.ones_like(se) * mask).sum(), min=1.0)
 
 
+def canonical_deform(batch: Tensors, body_model: BodyModel):
+    """The batched deform of canonical-space training (JAX stage1.py:132-145):
+    (pts (B, M, 3), dirs (B, M, 3) or None) in world space -> the big pose."""
+    def deform(pts, dirs):
+        R, Th = batch["R"], batch["Th"]
+        return deform_to_canonical_batched(
+            body_model, batch["poses"], batch["betas"], batch["t_poses"], batch["smpl_verts"],
+            world_to_smpl(pts, R, Th), None if dirs is None else world_to_smpl(dirs, R, Th))
+    return deform
+
+
 def stage1_loss(
     params: Tensors,
     batch: Tensors,
     cfg: Stage1Config,
     generator: Optional[torch.Generator] = None,
+    body_model: Optional[BodyModel] = None,
 ) -> Tuple[torch.Tensor, Tensors]:
     """Total loss and aux metrics (img_loss, acc_loss, tv, l1, psnr) of one
     batch: ``instance_idx`` and ``layer_idx`` (B,), rays_o / rays_d / rgb
-    (B, R, 3), near / far / bkgd_msk / ray_mask (B, R), box_warp (B, 2, 3)."""
+    (B, R, 3), near / far / bkgd_msk / ray_mask (B, R), box_warp (B, 2, 3);
+    in canonical space also poses / t_poses (B, J*3), betas (B, n),
+    smpl_verts (B, V, 3), R (B, 3, 3), Th (B, 3) and ``body_model``."""
+    deform = None
     if cfg.use_canonical_space:
-        raise NotImplementedError("canonical-space (TightCap) Stage-1 training needs the "
-                                  "SMPL body models; see ROADMAP A11")
+        if body_model is None:
+            raise ValueError("canonical-space training needs the body model")
+        deform = canonical_deform(batch, body_model)
     planes_b = params["planes"][batch["instance_idx"].long(), batch["layer_idx"].long()]
     render_planes = planes_b.to(torch.bfloat16) if cfg.use_bf16 else planes_b
     out = render_rays_batch(FlatDecoder(params["decoder"]), render_planes, batch["rays_o"],
                             batch["rays_d"], batch["near"], batch["far"], batch["box_warp"],
-                            cfg.render, generator=generator)
+                            cfg.render, generator=generator, deform_fn=deform)
     mask = batch.get("ray_mask")
     if mask is None:
         mask = torch.ones_like(batch["near"])
@@ -141,13 +169,14 @@ def train_step(
     batch: Tensors,
     cfg: Stage1Config,
     generator: Optional[torch.Generator] = None,
+    body_model: Optional[BodyModel] = None,
 ) -> Tensors:
     """One step on ``state`` in place: loss, backward, the two-group Adam over
     the whole table and the decoder (unless frozen), then the clamp. Returns
     the aux metrics and ``loss``, detached 0-d tensors on the state's device."""
     names = [n for n in ("planes", "decoder") if state.opt_state.get(n) is not None]
     params = {n: p.detach().requires_grad_(n in names) for n, p in state.params.items()}
-    loss, aux = stage1_loss(params, batch, cfg, generator)
+    loss, aux = stage1_loss(params, batch, cfg, generator, body_model)
     grads = dict(zip(names, torch.autograd.grad(loss, [params[n] for n in names])))
     state.opt_state = state.tx.step_(state.params, grads, state.opt_state)
     del grads

@@ -12,7 +12,8 @@ output is a tri-plane-only npz per subject (:323-333), which
 the decoder is frozen, so the fits are independent, and Adam's per-element
 normalisation cancels the 1/N of the batch mean. The JAX package can shard
 that table over a device mesh; the port runs it on one device (multi-device
-fine-tune: ROADMAP A12).
+fine-tune: ROADMAP A12). ``body_model`` is the canonical-space (TightCap)
+fits' body model, handed to every step.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from humanliff_tpu_torch.bodymodel.smpl import BodyModel
 from humanliff_tpu_torch.train.checkpoint import save_subject_planes
 from humanliff_tpu_torch.train.optim import make_finetune_optimizer
 from humanliff_tpu_torch.train.stage1 import Stage1Config, create_train_state, train_step
@@ -42,7 +44,7 @@ class FinetuneConfig:
 def _fit_layers(shared_params: Dict[str, torch.Tensor], n_subjects: int,
                 next_batch: Callable[[int, int], Batch], cfg: Stage1Config,
                 ft_cfg: FinetuneConfig, generator: Optional[torch.Generator],
-                log_every: int, label: str) -> torch.Tensor:
+                log_every: int, label: str, body_model: Optional[BodyModel]) -> torch.Tensor:
     """Fit every layer of ``n_subjects`` subjects in one table; returns
     (n_subjects, L, 3, C3, D, D) on the table's device."""
     tx = make_finetune_optimizer(ft_cfg.plane_lr, ft_cfg.lr_decay_every)
@@ -57,7 +59,7 @@ def _fit_layers(shared_params: Dict[str, torch.Tensor], n_subjects: int,
             planes[:, layer].copy_(fitted[-1])
         state = create_train_state(params, tx)
         for step in range(ft_cfg.steps_per_layer):
-            aux = train_step(state, next_batch(layer, step), ncfg, generator)
+            aux = train_step(state, next_batch(layer, step), ncfg, generator, body_model)
             if log_every and (step + 1) % log_every == 0:
                 print(f"[{label} layer {layer}] step {step + 1} psnr {float(aux['psnr']):.2f}")
         fitted.append(planes[:, layer].clone())
@@ -73,6 +75,7 @@ def finetune_subject(
     subject_name: str,
     generator: Optional[torch.Generator] = None,
     log_every: int = 200,
+    body_model: Optional[BodyModel] = None,
 ) -> np.ndarray:
     """Fit all layers of one subject; returns planes (L, 3, C3, D, D) and
     writes ``{subject_name}_{save_step:06d}.npz``. ``shared_params`` is
@@ -81,7 +84,7 @@ def finetune_subject(
     ``instance_idx`` is 0."""
     os.makedirs(out_dir, exist_ok=True)
     planes = _fit_layers(shared_params, 1, lambda layer, step: subject_batches(layer), cfg,
-                         ft_cfg, generator, log_every, f"ft {subject_name}")[0]
+                         ft_cfg, generator, log_every, f"ft {subject_name}", body_model)[0]
     out = planes.cpu().numpy()
     save_subject_planes(os.path.join(out_dir, f"{subject_name}_{ft_cfg.save_step:06d}.npz"),
                         out, ft_cfg.save_step)
@@ -97,6 +100,7 @@ def finetune_subjects_batched(
     subject_names,
     generator: Optional[torch.Generator] = None,
     log_every: int = 200,
+    body_model: Optional[BodyModel] = None,
 ) -> np.ndarray:
     """Fit all layers of N subjects concurrently; returns (N, L, 3, C3, D, D)
     and writes one npz per subject. ``subject_batches(pos, layer)`` returns
@@ -116,7 +120,7 @@ def finetune_subjects_batched(
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     planes = _fit_layers(shared_params, len(names), next_batch, cfg, ft_cfg, generator,
-                         log_every, f"ft-batched x{len(names)}").cpu().numpy()
+                         log_every, f"ft-batched x{len(names)}", body_model).cpu().numpy()
     for i, name in enumerate(names):
         save_subject_planes(os.path.join(out_dir, f"{name}_{ft_cfg.save_step:06d}.npz"),
                             planes[i], ft_cfg.save_step)

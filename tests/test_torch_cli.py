@@ -204,7 +204,7 @@ def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu(model_npz, tmp_path,
 
 
 @pytest.mark.parametrize("flag", [["--auto_plan", "true"], ["--parallel_window", "4"],
-                                  ["--view_dataset", "synbody"], ["--model_dir", "x"],
+                                  ["--parallel_tol", "5e-3"], ["--model_dir", "x"],
                                   ["--stage1_ckpt", "x"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):

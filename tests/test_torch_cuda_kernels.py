@@ -92,6 +92,44 @@ def test_fused_decoder_fitted(device, dtype, full):
         assert float((out - ref).abs().max()) <= _tol(dtype, ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_decoder_on_canonical_directions(device, dtype):
+    """Directions as canonical space hands them to the decoder: unit view
+    directions translated by a Th of 1 to 3 m and rotated, as the reference
+    (and both packages, ``bodymodel/canonical.py::world_to_smpl``) does, so
+    neither unit length nor centred: PE4's largest angle, 8 |d|, reaches
+    about 32 before the kernel's reduction to [-pi, pi]. The fitted decoder,
+    features from fitted planes."""
+    from humanliff_tpu_torch.bodymodel.canonical import world_to_smpl
+    from humanliff_tpu_torch.bodymodel.rotations import batch_rodrigues
+
+    dec = NeRFDecoder()
+    with np.load(os.path.join(REPO, "runs", "quality", "train", "decoder_060000.npz")) as f:
+        dec.load_state_dict(decoder_state_dict(dict(f)))
+    w = tuple(t.detach().to(device) for t in dec.weights())
+    with np.load(os.path.join(REPO, "runs", "quality", "stage2", "planes",
+                              "campaign0000_060000.npz")) as f:
+        planes = torch.from_numpy(np.ascontiguousarray(f["tri_planes"][3])).to(device)
+    rng = np.random.default_rng(6)
+    B, M = 4, 20_000
+    box = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)
+    coords = torch.from_numpy(rng.uniform(box[0], box[1], (B * M, 3)).astype(np.float32))
+    feats = sample_triplane_features(planes, coords.to(device), torch.from_numpy(box))
+    feats = feats.to(getattr(torch, dtype)).contiguous()
+    unit = F.normalize(torch.from_numpy(rng.standard_normal((B, M, 3)).astype(np.float32)), dim=-1)
+    Th = torch.from_numpy(rng.standard_normal((B, 3)).astype(np.float32))
+    Th = Th / Th.norm(dim=-1, keepdim=True) * torch.tensor([1.0, 1.7, 2.4, 3.0])[:, None]
+    R = batch_rodrigues(torch.from_numpy(rng.normal(size=(B, 3)).astype(np.float32)))
+    dirs = world_to_smpl(unit, R, Th).reshape(-1, 3)
+    assert float(dirs.norm(dim=-1).max()) > 3.5
+    dirs = dirs.to(device, getattr(torch, dtype)).contiguous()
+    rgb, alpha = fused_decoder(w, feats, dirs)
+    ref_rgb, ref_alpha = decoder_plain(w, feats, dirs)
+    for out, ref in ((alpha, ref_alpha), (rgb, ref_rgb)):
+        assert bool(torch.isfinite(out).all())
+        assert float((out - ref).abs().max()) <= _tol(dtype, ref)
+
+
 def test_fused_decoder_gradients(device):
     torch.manual_seed(0)
     dec = NeRFDecoder().to(device)

@@ -59,6 +59,15 @@ def test_stage1_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_canonical_modules_are_checked():
+    files = set(_port_files())
+    for module in ("bodymodel/rotations.py", "bodymodel/kinematics.py", "bodymodel/smpl.py",
+                   "bodymodel/bigpose.py", "bodymodel/canonical.py", "data/tightcap.py",
+                   "data/synbody.py", "data/view_datasets.py", "nerf/fastpath.py",
+                   "nerf/geometry.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]

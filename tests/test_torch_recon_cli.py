@@ -275,9 +275,13 @@ def test_evaluate_views_matches_jax_harness(fast, tmp_path):
 
 
 def test_unported_datasets_and_missing_cuda_raise(tmp_path):
+    """SynBody without its SMPL-X model files raises (they are not in the
+    repository; tests/test_torch_datasets.py runs the loaders on toy models),
+    as does --device cuda without CUDA."""
     argv = ["--basedir", str(tmp_path), "--n_iteration", "1"]
-    with pytest.raises(NotImplementedError, match="A11"):
-        recon_train.main(argv + ["--device", "cpu", "--data_set_type", "SynBody"])
+    with pytest.raises(FileNotFoundError, match="SMPLX_"):
+        recon_train.main(argv + ["--device", "cpu", "--data_set_type", "SynBody",
+                                 "--smplx_model_dir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             recon_train.main(argv + ["--data_set_type", "synthetic"])

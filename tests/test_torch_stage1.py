@@ -380,9 +380,11 @@ def test_bf16_renders_bf16_inputs_with_fp32_decoder_weights(setup, monkeypatch):
 
 
 def test_canonical_space_raises(setup):
+    """Canonical space without a body model raises; with one it is held to
+    JAX in tests/test_torch_canonical.py."""
     cfg = dataclasses.replace(setup["cfg"], use_canonical_space=True)
     params = {"planes": torch.from_numpy(setup["planes"]), "decoder": setup["dflat"]}
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="body model"):
         stage1_loss(params, U.to_torch(setup["batch"]), cfg)
 
 
