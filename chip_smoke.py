@@ -77,12 +77,33 @@ Phases, each printed with its seconds and failed past its budget:
               through make_eval_deform_fn (scripts/canonical_jax_reference.py):
               the exact tier against JAX's, the fast tier against the exact
               one, the 128^3 mesh of the posed subject                   240 s
+    quality   the quality campaigns (humanliff_tpu_torch.cli.recon_refit,
+              quality_eval, quality_stage2, bench_decode) on the committed
+              fitted pair copied into quality_stage2's layout, seven checks:
+              recon_refit --refit_steps 0 (the planes and the decoder bit for
+              bit the files, step 60000, the _REFIT.txt stamp); 20 refit steps
+              at the campaign width (2 instances, D 256, 2 x 2,048 rays, 128 +
+              128 samples, fp32) with s/step, the planes still bit for bit and
+              the decoder moved; quality_eval --skip_train --fast_eval, each of
+              the 16 exact views within QUALITY_EVAL_PSNR_DB of the JAX
+              package's PSNR, QUALITY.md written, no LPIPS column; the full
+              VGG16 LPIPS with seeded weights on two of its renders, card vs
+              CPU; quality_stage2 at the flagship UNet width with STAGE2_FLAGS'
+              cut depth (a success report with the JAX key set, finite losses
+              and scores, a decode view against a CPU re-render, each leg's
+              seconds and the peak memory); the seconds of a 4 x 250-step
+              chain at B 1 and B 8 (sampling/layered.py::DEFAULT_CHAIN_COSTS)
+              and the plan for 25 samples; bench_decode at 512^2, its fast
+              tier at least FITTED_FAST_VS_EXACT_DB from its exact tier     300 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
 mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
 recon_test, canonical training, and the canonical exact view, grid build,
-fast view and mesh) and read just after it; Stage-2 training renders nothing
+fast view and mesh, and each quality CLI: recon_refit, quality_eval with
+its exact and fast renders apart, quality_stage2 with its fine-tune and its
+decode apart, bench_decode with its exact and fast renders apart) and read
+just after it; Stage-2 training renders nothing
 and must launch the decoder kernel 0 times, a Stage-1 step, world or
 canonical, exactly twice (the coarse and the fine pass). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
@@ -94,6 +115,8 @@ checkout of the repo, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import glob
 import json
 import math
 import os
@@ -122,7 +145,7 @@ TIGHTCAP_CONFIG = os.path.join(REPO, "configs", "TightCap.txt")
 CANONICAL_REFERENCE = os.path.join(REPO, "runs", "quality", "canonical_jax_reference.npz")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
-            "cli": 360, "train": 300, "recon": 240, "canonical": 240}
+            "cli": 360, "train": 300, "recon": 240, "canonical": 240, "quality": 300}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -195,6 +218,30 @@ CANON_DESCENT_MIN_DROP = 0.05
 CANON_EXACT_DB, CANON_FAST_MARGIN_DB = 40.0, 0.5
 # The deform's 1-NN: 2 x 2^20 query points.
 CANON_DEFORM_POINTS = 1 << 20
+
+# The quality campaigns (the quality phase). Check 3: each exact held-out view
+# of quality_eval on the reassembled committed pair within QUALITY_EVAL_PSNR_DB
+# of the JAX package's PSNR (STAGE1_REFERENCE; the recon phase's check 6 read at
+# most 0.00595 dB on an H100). Check 4: LPIPS of the full VGG16 tower, card
+# against CPU, relative. Check 5 runs quality_stage2 with STAGE2_FLAGS: the
+# flagship UNet width, the depth cut (20 fine-tune steps, 10 diffusion steps,
+# 8 samples of 10 respaced steps, 128^2 decode, 4 eval timesteps); its metrics
+# must carry STAGE2_JAX_KEYS, the keys of the JAX CLI's stage2_metrics.json,
+# and bench_decode's JSON BENCH_DECODE_JAX_KEYS, the JAX CLI's.
+QUALITY_EVAL_PSNR_DB, LPIPS_RTOL = 0.05, 1e-4
+STAGE2_FLAGS = ("--ft_subjects", "1", "--ft_steps", "20", "--diff_steps", "10",
+                "--save_interval", "10", "--num_samples", "8", "--respacing", "10",
+                "--decode_size", "128", "--n_eval_timesteps", "4")
+STAGE2_JAX_KEYS = ("diff_step", "weights", "weights_fp", "ema_rate", "diff_steps",
+                   "num_samples", "respacing", "n_eval_timesteps", "n_campaign_subjects",
+                   "n_ft_subjects", "train_subjects", "heldout_subject",
+                   "denoise_loss_heldout", "denoise_loss_train", "nearest_gt_psnr",
+                   "plane_fidelity", "decoded_fidelity", "decode_box")
+BENCH_DECODE_JAX_KEYS = ("checkpoint_step", "render_size", "num_views", "exact_s_per_view",
+                         "fast_s_per_view", "speedup", "exact_s_per_view_median",
+                         "fast_s_per_view_median", "speedup_median", "fast_vs_exact_psnr_db",
+                         "grid_build_s", "fast_first_view_incl_grid_s", "early_term_eps",
+                         "dtype")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s of HBM3, flop/s of the
 # tensor cores in TF32 and bf16. The data sheet's tensor-core peaks hold at the
@@ -2178,6 +2225,514 @@ def phase_canonical(device, steps: int = 20, descent=None, deform_points=CANON_D
     return out
 
 
+# --------------------------------------------------------------------------
+# The quality campaigns: recon_refit, quality_eval, LPIPS, quality_stage2,
+# the chain costs, bench_decode
+# --------------------------------------------------------------------------
+
+
+class PathLedger:
+    """Wraps entry points (a module attribute each) so that the fused
+    decoder's launches made inside a call, the count the call's own
+    arguments give (``expect``) and its seconds (host clock between
+    synchronizes) add to a named path. ``capture(args, kwargs, out)`` sees
+    each call. Used as a context manager: the wrapped attributes are
+    restored on exit."""
+
+    def __init__(self, device):
+        self.device = device
+        self.launches, self.expected, self.seconds, self.calls = {}, {}, {}, {}
+        self._undo = []
+
+    def wrap(self, module, name: str, key: str, expect=None, capture=None) -> None:
+        import inspect
+
+        from humanliff_tpu_torch import kernels
+
+        real = getattr(module, name)
+        sig = inspect.signature(real)
+
+        def wrapped(*args, **kwargs):
+            if expect is not None:
+                bound = sig.bind(*args, **kwargs)
+                bound.apply_defaults()
+                self.expected[key] = self.expected.get(key, 0) + expect(bound.arguments)
+            sync(self.device)
+            before = kernels.LAUNCHES["fused_decoder"]
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            sync(self.device)
+            self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+            self.launches[key] = (self.launches.get(key, 0)
+                                  + kernels.LAUNCHES["fused_decoder"] - before)
+            self.calls[key] = self.calls.get(key, 0) + 1
+            if capture is not None:
+                capture(args, kwargs, out)
+            return out
+
+        setattr(module, name, wrapped)
+        self._undo.append((module, name, real))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in reversed(self._undo):
+            setattr(module, name, real)
+        self._undo.clear()
+        return False
+
+    def check(self, key: str, what: str) -> int:
+        expect_launches(self.device, self.launches.get(key, 0), self.expected.get(key, 0),
+                        f"{what} ({self.calls.get(key, 0)} calls)")
+        return self.launches.get(key, 0)
+
+
+def exact_render_launches(a) -> int:
+    """render_image_masked's launches: coarse + fine per chunk of in-box rays."""
+    return 2 * math.ceil(int(np.asarray(a["mask"]).sum()) / a["chunk"])
+
+
+def grid_build_launches(a) -> int:
+    return math.ceil((a["resolution"] + 1) ** 3 / a["build_chunk"])
+
+
+def fast_render_launches(a) -> int:
+    """render_image_fast's launches: one per ``chunk`` kept rays of each group
+    of ``max_rays_in_flight``, the kept rays worked out from the same grid
+    and the same coarse phase (no decoder call)."""
+    import torch
+
+    check(a["deform_fn"] is None, "fast_render_launches counts world-space renders only")
+    mask = np.asarray(a["mask"]).reshape(-1).astype(bool)
+    device = a["planes"].device
+    rays = [torch.as_tensor(np.asarray(r, np.float32)).reshape(mask.size, -1).squeeze(-1)
+            [torch.from_numpy(mask)].to(device)
+            for r in (a["rays_o"], a["rays_d"], a["near"], a["far"])]
+    box = torch.as_tensor(np.asarray(a["box_warp"], np.float32)).to(device)
+    cfg = dataclasses.replace(a["cfg"], perturb=False, density_noise=False)
+    keep = kept_rays(a["grid"], rays, box, cfg, a["early_term_eps"]).cpu()
+    chunk = a["chunk"]
+    group = max(chunk, (a["max_rays_in_flight"] // chunk) * chunk)
+    return sum(math.ceil(int(keep[g:g + group].sum()) / chunk)
+               for g in range(0, keep.shape[0], group))
+
+
+def _copy_campaign_pair(out: str) -> None:
+    """The committed fitted pair in quality_stage2's layout under ``out``."""
+    planes_dir = os.path.join(out, "stage2", "planes")
+    os.makedirs(planes_dir)
+    os.makedirs(os.path.join(out, "train"))
+    for path in (PLANES_NPZ, PLANES_NPZ_1):
+        shutil.copy(path, os.path.join(planes_dir, os.path.basename(path)))
+    shutil.copy(DECODER_NPZ, os.path.join(out, "train", os.path.basename(DECODER_NPZ)))
+
+
+def _quality_refit(device, out: str, tmp: str, campaign, steps: int) -> dict:
+    """Checks 1 and 2: recon_refit's reassembly (0 steps) into ``out``/train,
+    then a 20-step refit at the campaign width into its own directory."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import recon_refit
+    from humanliff_tpu_torch.compat.from_jax import decoder_state_dict
+    from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+    from humanliff_tpu_torch.train.stage1 import train_step
+
+    exports = [os.path.join(out, "stage2", "planes", os.path.basename(p))
+               for p in (PLANES_NPZ, PLANES_NPZ_1)]
+    sidecar = os.path.join(out, "train", os.path.basename(DECODER_NPZ))
+    want_planes = [torch.from_numpy(ckpt.load_subject_planes(p)) for p in exports]
+    want_dec = flatten_state_dict(decoder_state_dict(ckpt.load_decoder_npz(DECODER_NPZ)))
+    refit = campaign + ["--plane_files", os.path.join(out, "stage2", "planes", "campaign*.npz"),
+                        "--decoder_from", sidecar, "--expname", "train"]
+
+    def saved(expdir):
+        restored, step = ckpt.restore_state(expdir)
+        planes_same = all(torch.equal(restored["planes"][i], want_planes[i]) for i in range(2))
+        return restored, step, planes_same
+
+    # Check 1: reassembly.
+    argv = refit + ["--refit_steps", "0", "--basedir", out]
+    say(f"[quality] python -m humanliff_tpu_torch.cli.recon_refit {' '.join(argv)}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    recon_refit.main(argv)
+    reassembly_s = time.perf_counter() - t0
+    restored, step, planes_same = saved(os.path.join(out, "train"))
+    dec_same = torch.equal(restored["decoder"], want_dec)
+    stamp = os.path.exists(os.path.join(out, "train", f"{step:06d}_REFIT.txt"))
+    say(f"[quality] check 1, recon_refit --refit_steps 0 in {reassembly_s:.3f} s: step {step}, "
+        f"planes bit for bit {planes_same}, decoder bit for bit the sidecar {dec_same}, "
+        f"{step:06d}_REFIT.txt {stamp}; launches {kernels.LAUNCHES['fused_decoder']}")
+    check(step == 60000 and planes_same and dec_same and stamp,
+          "recon_refit's reassembly did not keep the exports and the sidecar")
+    check(kernels.LAUNCHES["fused_decoder"] == 0, "the reassembly launched the decoder")
+    del restored
+
+    # Check 2: 20 refit steps.
+    refit_dir = os.path.join(tmp, "refit")
+    argv = refit + ["--refit_steps", str(steps), "--i_print", str(max(steps // 2, 1)),
+                    "--basedir", refit_dir]
+    say(f"[quality] python -m humanliff_tpu_torch.cli.recon_refit {' '.join(argv)}")
+    timer = StepTimer(train_step, device, profile_at=2)
+    kernels.reset_launches()
+    recon_refit.train_step = timer
+    try:
+        t0 = time.perf_counter()
+        recon_refit.main(argv)
+        refit_s = time.perf_counter() - t0
+    finally:
+        recon_refit.train_step = train_step
+    launches = kernels.LAUNCHES["fused_decoder"]
+    restored, step, planes_same = saved(os.path.join(refit_dir, "train"))
+    moved = float((restored["decoder"] - want_dec).abs().max())
+    with open(os.path.join(refit_dir, "train", "progress.json")) as f:
+        logs = [json.loads(line) for line in f]
+    wall_s = statistics.median(timer.wall[3:]) if len(timer.wall) > 3 else timer.wall[-1]
+    rec = {"steps": steps, "refit_s": refit_s, "reassembly_s": reassembly_s,
+           "wall_s_per_step": wall_s, "wall_s_all": timer.wall, "launches": launches,
+           "decoder_moved": moved, "losses": [m["loss"] for m in logs]}
+    if device.type == "cuda":
+        rec.update(event_ms_per_step=statistics.median(timer.event_ms[3:]),
+                   kernel_ms=timer.kernel_ms, busy=timer.kernel_ms / (1e3 * wall_s))
+        say(f"[quality] check 2, recon_refit {steps} steps in {refit_s:.3f} s: s/step (median "
+            f"of steps 4-{steps}) {wall_s:.4f}; device ms/step by CUDA events "
+            f"{rec['event_ms_per_step']:.3f}; profiled step {timer.profile_at + 1}: "
+            f"{timer.kernel_ms:.3f} ms of kernels, busy share {rec['busy']:.4f}")
+    say(f"[quality] check 2: losses {rec['losses']}; planes bit for bit {planes_same}; "
+        f"decoder moved by {moved:.3e} max abs; step {step}; per-step wall s "
+        f"{', '.join(f'{w:.4f}' for w in timer.wall)}")
+    check(planes_same, "the refit moved the frozen planes")
+    check(moved > 0.0, "the refit did not move the decoder")
+    check(step == 60000 and all(math.isfinite(v) for v in rec["losses"]),
+          f"refit step {step}, losses {rec['losses']}")
+    expect_launches(device, launches, 2 * steps, f"refit ({steps} steps: coarse + fine each)")
+    shutil.rmtree(refit_dir, ignore_errors=True)
+    return rec
+
+
+def _quality_eval(device, out: str, eval_flags=()) -> dict:
+    """Check 3: quality_eval --skip_train --fast_eval on the reassembled
+    state, each exact view against the JAX package's PSNR."""
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import quality_eval
+    from humanliff_tpu_torch.eval import harness
+    from humanliff_tpu_torch.eval.metrics import lpips_fn
+    from humanliff_tpu_torch.nerf import fastpath
+
+    with open(STAGE1_REFERENCE) as f:
+        ref = json.load(f)
+    renders = []
+
+    def keep_render(args, kwargs, out_):
+        if len(renders) < 2:
+            renders.append(out_["rgb"].float().cpu().numpy())
+
+    argv = ["--out_dir", out, "--skip_train", "--fast_eval", "--device", device.type,
+            *eval_flags]
+    say(f"[quality] python -m humanliff_tpu_torch.cli.quality_eval {' '.join(argv)}")
+    kernels.reset_launches()
+    with PathLedger(device) as led:
+        led.wrap(harness, "render_image_masked", "exact", exact_render_launches, keep_render)
+        led.wrap(fastpath, "build_density_grid", "fast", grid_build_launches)
+        led.wrap(harness, "render_image_fast", "fast", fast_render_launches)
+        t0 = time.perf_counter()
+        results = quality_eval.main(argv)
+        eval_s = time.perf_counter() - t0
+    total = kernels.LAUNCHES["fused_decoder"]
+    gaps, per_view = {}, {}
+    for name in sorted(glob.glob(os.path.join(out, "eval_060000", "metrics_s*_l*.json"))):
+        tag = os.path.basename(name)[len("metrics_"):-len(".json")]
+        subject, layer = int(tag[1:5]), int(tag.split("_l")[1])
+        with open(name) as f:
+            rows = json.load(f)["per_view"]
+        for view, row in zip((145 + 5 * layer, 165 + 5 * layer), rows):
+            key = f"s{subject}_l{layer}_v{view}"
+            per_view[key] = row
+            if key in ref["eval"]:
+                gaps[key] = row["psnr"] - ref["eval"][key]["psnr"]
+    worst = max(gaps, key=lambda k: abs(gaps[k])) if gaps else None
+    say(f"[quality] check 3, quality_eval ({len(per_view)} exact views + as many fast, "
+        f"{ref['image_size']}^2) in {eval_s:.3f} s (exact {led.seconds.get('exact', 0):.3f} s, "
+        f"fast {led.seconds.get('fast', 0):.3f} s): PSNR card - JAX CPU per view (bar "
+        f"{QUALITY_EVAL_PSNR_DB} dB) "
+        + ", ".join(f"{k} {ref['eval'][k]['psnr']:.4f}{gaps[k]:+.5f}" for k in sorted(gaps)))
+    for k in sorted(results):
+        say(f"[quality] check 3, {k}: {json.dumps(results[k])}")
+    check(gaps and abs(gaps[worst]) <= QUALITY_EVAL_PSNR_DB,
+          f"quality_eval: {worst} is {gaps.get(worst)} dB from the JAX CPU reference")
+    check(os.path.exists(os.path.join(out, "QUALITY.md"))
+          and os.path.exists(os.path.join(out, "quality_metrics.json")),
+          "quality_eval wrote no QUALITY.md / quality_metrics.json")
+    no_lpips = lpips_fn(device) is None and not any("lpips" in r for r in per_view.values())
+    say(f"[quality] check 3: LPIPS column absent (no weights) {no_lpips}")
+    check(no_lpips, "an LPIPS column without LPIPS weights")
+    paths = {"quality_eval exact": led.check("exact", "quality_eval exact"),
+             "quality_eval fast": led.check("fast", "quality_eval fast (grids + views)")}
+    check(total == sum(paths.values()), f"quality_eval launched {total} times outside its renders")
+    return {"eval_s": eval_s, "seconds": dict(led.seconds), "paths": paths, "gaps": gaps,
+            "max_abs_gap_db": abs(gaps[worst]), "renders": renders,
+            "size": ref["image_size"]}
+
+
+def _lpips_card_vs_cpu(device, renders, size: int, reps: int = 10) -> dict:
+    """Check 4: the full VGG16 LPIPS with seeded random weights on two
+    renders of check 3, the card against the CPU (fp32, TF32 off)."""
+    import torch
+
+    from humanliff_tpu_torch.eval.lpips import LPIPS, VGG16_CFG, VGG16_SLICES
+
+    rng = np.random.default_rng(0)
+    params, cin, ci, chans = {}, 3, 0, []
+    for c in VGG16_CFG:
+        if c == "M":
+            continue
+        params[f"conv{ci}_w"] = rng.normal(0, np.sqrt(2.0 / (9 * cin)),
+                                           (3, 3, cin, c)).astype(np.float32)
+        params[f"conv{ci}_b"] = rng.normal(0, 0.01, (c,)).astype(np.float32)
+        chans.append(c)
+        cin, ci = c, ci + 1
+    for li, sl in enumerate(VGG16_SLICES):
+        params[f"lin{li}"] = rng.uniform(0, 1, (chans[sl - 1],)).astype(np.float32)
+    a, b = (torch.from_numpy(r.reshape(size, size, 3)).permute(2, 0, 1)[None] * 2 - 1
+            for r in renders)
+    net_cpu = LPIPS().load_npz_params(params).eval()
+    net = LPIPS().load_npz_params(params).to(device).eval()
+    with torch.no_grad():
+        d_cpu = float(net_cpu(a, b)[0])
+        ad, bd = a.to(device), b.to(device)
+        d_card = float(net(ad, bd)[0])
+        ms = cuda_ms(lambda: net(ad, bd), reps) if device.type == "cuda" else None
+    rel = abs(d_card - d_cpu) / abs(d_cpu)
+    say(f"[quality] check 4, LPIPS (VGG16, seeded weights) of two {size}^2 renders: card "
+        f"{d_card!r}, CPU {d_cpu!r}, {rel:.3e} relative (rtol {LPIPS_RTOL}); "
+        + (f"{ms:.3f} ms per pair (CUDA events, mean of {reps})" if ms is not None else ""))
+    check(rel <= LPIPS_RTOL and d_cpu > 0, f"LPIPS card vs CPU: {d_card} vs {d_cpu}")
+    return {"card": d_card, "cpu": d_cpu, "rel": rel, "ms": ms}
+
+
+def _quality_stage2(device, out: str, stage2_flags) -> dict:
+    """Check 5: quality_stage2 on ``out`` at the flagship UNet width, reduced
+    depth: every leg's seconds, the fine-tune's and the decode's launches, a
+    success report with the JAX key set and finite scores, and one decode
+    view against a CPU re-render of 256 of its rays."""
+    import torch
+
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import diff_train, quality_stage2, recon_ft
+    from humanliff_tpu_torch.eval import fidelity
+    from humanliff_tpu_torch.nerf.renderer import render_rays
+    from humanliff_tpu_torch.sampling import layered
+
+    ft_steps = int(stage2_flags[stage2_flags.index("--ft_steps") + 1])
+    ft_subjects = int(stage2_flags[stage2_flags.index("--ft_subjects") + 1])
+    first = {}
+
+    def keep_first(args, kwargs, out_):
+        if not first:
+            a = dict(zip(("decoder", "planes", "rays_o", "rays_d", "near", "far", "mask",
+                          "box_warp", "cfg"), args))
+            first.update(a, out={k: v.clone() for k, v in out_.items()})
+
+    argv = ["--out_dir", out, "--device", device.type, *stage2_flags]
+    say(f"[quality] python -m humanliff_tpu_torch.cli.quality_stage2 {' '.join(argv)}")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with PathLedger(device) as led:
+        led.wrap(recon_ft, "main", "ft", lambda a: 2 * 4 * ft_steps)
+        led.wrap(diff_train, "main", "train")
+        led.wrap(layered, "generate_workload", "sample")
+        led.wrap(fidelity, "heldout_denoise_loss", "denoise loss")
+        led.wrap(quality_stage2, "render_image_masked", "decode", exact_render_launches,
+                 keep_first)
+        t0 = time.perf_counter()
+        metrics = quality_stage2.main(argv)
+        stage2_s = time.perf_counter() - t0
+    total = kernels.LAUNCHES["fused_decoder"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    work = os.path.join(out, "stage2")
+    report = open(os.path.join(work, "STAGE2.md")).read()
+    with open(os.path.join(work, "stage2_metrics.json")) as f:
+        saved = json.load(f)
+    say(f"[quality] check 5, quality_stage2 in {stage2_s:.3f} s, legs (s): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in led.seconds.items())
+        + (f"; peak memory {peak_gb:.3f} GB" if peak_gb is not None else ""))
+    for k in ("weights", "denoise_loss_heldout", "denoise_loss_train", "nearest_gt_psnr",
+              "decoded_fidelity"):
+        say(f"[quality] check 5, {k}: {json.dumps(saved[k])}")
+    check("STATUS: FAILED" not in report and "Chain fidelity" in report,
+          "quality_stage2 wrote no success report")
+    check(set(saved) == set(STAGE2_JAX_KEYS),
+          f"stage2_metrics.json keys {sorted(set(saved) ^ set(STAGE2_JAX_KEYS))} differ from JAX's")
+    for split in ("denoise_loss_heldout", "denoise_loss_train"):
+        check(sorted(int(k) for k in saved[split]) == [0, 1, 2, 3]
+              and all(math.isfinite(v) for v in saved[split].values()),
+              f"{split}: {saved[split]}")
+    check(all(math.isfinite(v) for v in saved["nearest_gt_psnr"].values()),
+          f"nearest-GT PSNR {saved['nearest_gt_psnr']}")
+    check(len(saved["decoded_fidelity"]) == 3 and all(
+        0.0 <= m["changed_pixel_fraction"] <= 1.0 and 0.0 <= m["occupancy_persistence"] <= 1.0
+        and math.isfinite(m["unchanged_psnr"]) for m in saved["decoded_fidelity"].values()),
+        f"decoded fidelity {saved['decoded_fidelity']}")
+    check(metrics is not None and metrics["diff_step"] == saved["diff_step"],
+          "quality_stage2 returned no metrics")
+
+    # The first decode view (layer 0's sample 0) on the CPU, 256 of its rays.
+    mask = np.asarray(first["mask"]).reshape(-1).astype(bool)
+    idx = check_rays(mask, 256)
+    with torch.no_grad():
+        ref = render_rays(cpu_decoder(first["decoder"]), first["planes"].cpu(),
+                          *(torch.from_numpy(np.asarray(first[k], np.float32)[idx])
+                            for k in ("rays_o", "rays_d", "near", "far")),
+                          torch.from_numpy(np.asarray(first["box_warp"], np.float32)),
+                          dataclasses.replace(first["cfg"], perturb=False, density_noise=False))
+    psnrs = compare_subset(first["out"], ref, idx, "quality_stage2 decode view, layer 0")
+    ft = led.check("ft", f"quality_stage2 ft ({ft_subjects} subject, {ft_steps} steps x 4 "
+                         "layers)")
+    decode = led.check("decode", "quality_stage2 decode (4 layers)")
+    check(total == ft + decode, f"quality_stage2 launched {total} times, {ft} + {decode} in "
+                                "the fine-tune and the decode")
+    return {"stage2_s": stage2_s, "seconds": dict(led.seconds), "peak_gb": peak_gb,
+            "paths": {"quality_stage2 ft": ft, "quality_stage2 decode": decode},
+            "psnr_cpu": psnrs, "metrics": saved}
+
+
+def _chain_costs(device, model_kwargs=None, image_size=256, steps: int = 4,
+                 repeats: int = 3) -> dict:
+    """Check 6: seconds of a 4-layer x 250-step chain at B 1 and B 8, from
+    ``steps`` respaced flagship UNet steps timed by CUDA events (median of
+    ``repeats``) times 1,000 / ``steps``, and the plan for 25 samples."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.sampling.layered import (
+        DEFAULT_CHAIN_COSTS,
+        generate_layer,
+        plan_workload,
+    )
+
+    kw = dict(model_kwargs or {}, timestep_respacing=str(steps))
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(image_size=image_size, **kw)
+    seed_weights(model, 0)
+    model.eval()
+    if device.type == "cuda":
+        model.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    gen = torch.Generator(device=device).manual_seed(0)
+    channels = kw.get("in_channels", 27)
+    costs = {}
+    for B in (1, 8):
+        def run():
+            return generate_layer(model, diffusion, 1, None, gen, batch_size=B,
+                                  image_size=image_size, channels=channels, device=device)
+
+        run()  # warm-up
+        times = []
+        for _ in range(repeats):
+            if device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3)
+            else:
+                t0 = time.perf_counter()
+                run()
+                times.append(time.perf_counter() - t0)
+        costs[B] = statistics.median(times) / steps * 1000
+        say(f"[quality] check 6, B {B}: {steps} UNet steps in "
+            + ", ".join(f"{t:.4f}" for t in times) + f" s; chain of 4 x 250 steps "
+            f"{costs[B]:.3f} s")
+    del model
+    plan = plan_workload(25, costs)
+    say(f"[quality] check 6, DEFAULT_CHAIN_COSTS must hold {json.dumps(costs)} (the port "
+        f"holds {json.dumps(DEFAULT_CHAIN_COSTS)}); the plan for 25 samples: {plan} "
+        f"({sum(costs[b] for b in plan):.3f} s; all B 1 {25 * costs[1]:.3f} s, all B 8 "
+        f"{math.ceil(25 / 8) * costs[8]:.3f} s); the port's table plans "
+        f"{plan_workload(25)}")
+    check(all(math.isfinite(c) and c > 0 for c in costs.values()), f"chain costs {costs}")
+    return {"costs": costs, "plan_25": plan, "port_plan_25": plan_workload(25)}
+
+
+def _bench_decode(device, out: str, tmp: str, bench_flags=()) -> dict:
+    """Check 7: bench_decode on the reassembled state, 512^2, layer 3."""
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import bench_decode
+    from humanliff_tpu_torch.nerf import fastpath
+
+    out_json = os.path.join(tmp, "bench_decode.json")
+    argv = ["--ckpt_dir", os.path.join(out, "train"), "--out_json", out_json, "--num_views",
+            "2", "--render_size", "512", "--layer", "3", "--device", device.type, *bench_flags]
+    say(f"[quality] python -m humanliff_tpu_torch.cli.bench_decode {' '.join(argv)}")
+    kernels.reset_launches()
+    with PathLedger(device) as led:
+        led.wrap(bench_decode, "render_image_masked", "exact", exact_render_launches)
+        led.wrap(fastpath, "build_density_grid", "fast", grid_build_launches)
+        led.wrap(bench_decode, "build_density_grid", "fast", grid_build_launches)
+        led.wrap(bench_decode, "render_image_fast", "fast", fast_render_launches)
+        t0 = time.perf_counter()
+        bench_decode.main(argv)
+        bench_s = time.perf_counter() - t0
+    total = kernels.LAUNCHES["fused_decoder"]
+    with open(out_json) as f:
+        result = json.load(f)
+    say(f"[quality] check 7, bench_decode in {bench_s:.3f} s: exact "
+        f"{result['exact_s_per_view']:.4f} s/view (median {result['exact_s_per_view_median']:.4f}),"
+        f" fast {result['fast_s_per_view']:.4f} s/view (median "
+        f"{result['fast_s_per_view_median']:.4f}), speedup {result['speedup']:.3f}, grid build "
+        f"{result['grid_build_s']:.4f} s; fast vs exact {result['fast_vs_exact_psnr_db']:.4f} dB "
+        f"(bar {FITTED_FAST_VS_EXACT_DB:.4f} dB)")
+    check(set(result) == set(BENCH_DECODE_JAX_KEYS),
+          f"bench_decode keys {sorted(set(result) ^ set(BENCH_DECODE_JAX_KEYS))} differ from JAX's")
+    check(result["fast_vs_exact_psnr_db"] >= FITTED_FAST_VS_EXACT_DB,
+          f"bench_decode: fast tier {result['fast_vs_exact_psnr_db']} dB from the exact tier")
+    paths = {"bench_decode exact": led.check("exact", "bench_decode exact"),
+             "bench_decode fast": led.check("fast", "bench_decode fast (grids + views)")}
+    check(total == sum(paths.values()), f"bench_decode launched {total} times outside its renders")
+    return {"bench_s": bench_s, "result": result, "paths": paths}
+
+
+def phase_quality(device, refit_steps: int = 20, campaign_flags=(), eval_flags=(),
+                  stage2_flags=None, bench_flags=(), chain_kw=None) -> dict:
+    """The quality campaigns' seven checks (module docstring), in a temporary
+    directory holding the committed fitted pair in quality_stage2's layout.
+    The keyword arguments narrow a CPU rehearsal: ``campaign_flags`` go to
+    recon_refit, ``eval_flags`` to quality_eval, ``stage2_flags`` replace
+    quality_stage2's, ``bench_flags`` go to bench_decode and ``chain_kw`` to
+    _chain_costs."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_quality_")
+    try:
+        out = os.path.join(tmp, "campaign")
+        _copy_campaign_pair(out)
+        campaign = ["--data_set_type", "synthetic", "--num_instance", "2",
+                    "--synthetic_image_size", "128", "--synthetic_tight_bounds", "true",
+                    "--n_rand", "2048", "--batch_size", "2", "--n_samples", "128",
+                    "--n_importance", "128", "--triplane_dim", "256", "--triplane_ch", "27",
+                    "--device", device.type, *campaign_flags]
+        rec = {"refit": _quality_refit(device, out, tmp, campaign, refit_steps)}
+        rec["eval"] = _quality_eval(device, out, eval_flags)
+        rec["lpips"] = _lpips_card_vs_cpu(device, rec["eval"].pop("renders"),
+                                          rec["eval"]["size"])
+        rec["stage2"] = _quality_stage2(device, out, list(stage2_flags or STAGE2_FLAGS))
+        rec["chain"] = _chain_costs(device, **(chain_kw or {}))
+        rec["bench"] = _bench_decode(device, out, tmp, bench_flags)
+        rec["paths"] = {"refit": rec["refit"]["launches"], **rec["eval"]["paths"],
+                        **rec["stage2"]["paths"], **rec["bench"]["paths"]}
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2287,6 +2842,20 @@ def main(argv=None) -> int:
                    f"peak {cf['peak_gb']:.3f} GB; 1-NN {canon['deform']['nn_ms']:.3f} ms, deform "
                    f"{canon['deform']['deform_ms']:.3f} ms; exact vs JAX "
                    f"{canon['eval']['exact_vs_jax_db']:.3f} dB")
+
+    with Phase("quality", cuda_sync):
+        quality = phase_quality(device)
+        paths.update(quality["paths"])
+    qs = quality["stage2"]["seconds"]
+    summary.append(f"refit {quality['refit']['wall_s_per_step']:.4f} s/step; quality_eval "
+                   f"{quality['eval']['eval_s']:.3f} s (vs JAX max "
+                   f"{quality['eval']['max_abs_gap_db']:.5f} dB); quality_stage2 "
+                   f"{quality['stage2']['stage2_s']:.3f} s (ft {qs['ft']:.3f}, train "
+                   f"{qs['train']:.3f}, sample {qs['sample']:.3f}, decode {qs['decode']:.3f}), "
+                   f"peak {quality['stage2']['peak_gb']:.3f} GB; chain costs "
+                   f"{json.dumps(quality['chain']['costs'])}; bench_decode exact / fast "
+                   f"{quality['bench']['result']['exact_s_per_view_median']:.4f} / "
+                   f"{quality['bench']['result']['fast_s_per_view_median']:.4f} s/view")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "

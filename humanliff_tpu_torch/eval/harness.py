@@ -2,8 +2,8 @@
 reference recon_NeRF/lib/all_test.py).
 
 Renders held-out views per (subject, layer), writes pred/gt PNGs, computes
-MSE/PSNR/SSIM (LPIPS while its weights are absent: none) over the mask_at_box
-crop (all_test.py:19-42, :186-195), prints per-image wall-clock, and writes
+MSE/PSNR/SSIM (and LPIPS where ``eval/metrics.py::lpips_fn`` has its weights)
+over the mask_at_box crop (all_test.py:19-42, :186-195), prints per-image wall-clock, and writes
 ``metrics_{tag}.json`` / ``metrics_{tag}.npy`` (:220-227). View selection
 matches :100-109: base views [145, 165] offset by 5 x layer, or the 145-185
 range for a single ``--test_layer_id``.
@@ -70,7 +70,7 @@ def evaluate_views(
     eval; ``deform_args_fn(item)`` gives its per-view SMPL arrays."""
     if savedir:
         os.makedirs(savedir, exist_ok=True)
-    lpips = lpips_fn()
+    lpips = lpips_fn(planes.device)
     grids = GridCache(decoder, planes, resolution=grid_resolution) if fast and view_items else None
     rows = []
     for vi, item in enumerate(view_items):

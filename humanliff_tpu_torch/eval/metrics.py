@@ -5,10 +5,11 @@ a copy of ``humanliff_tpu/eval/metrics.py`` (numpy only).
 - SSIM: reference used skimage's ``compare_ssim`` with its defaults (gaussian off,
   7x7 uniform window, data_range inferred); implemented here directly (skimage is not
   vendored) with the standard uniform-window formulation and data_range=1.
-- LPIPS: the reference depends on the torch ``lpips`` VGG checkpoint. Its weights
-  are not in the repository (docs/LPIPS_PROBE.md), so ``lpips_fn`` returns ``None``
-  and eval reports skip the column, as the JAX package does without them
-  (ROADMAP A11).
+- LPIPS: the reference depends on the torch ``lpips`` VGG checkpoint. ``lpips_fn``
+  returns the port's VGG-LPIPS (``eval/lpips.py``) when its weight npz exists,
+  else the torch ``lpips`` package's when it is installed, else ``None`` and
+  eval reports skip the column. The weights are not in the repository
+  (docs/LPIPS_PROBE.md), so ``None`` is what it returns here and on the card.
 """
 
 from __future__ import annotations
@@ -71,6 +72,27 @@ def ssim(
     return float(interior.mean())
 
 
-def lpips_fn() -> Optional[Callable[[np.ndarray, np.ndarray], float]]:
-    """The perceptual metric, or ``None`` while its weights are absent."""
-    return None
+def lpips_fn(device="cuda") -> Optional[Callable[[np.ndarray, np.ndarray], float]]:
+    """Perceptual metric of two (H, W, 3) images in [0, 1]: the port's
+    VGG-LPIPS on ``device`` when its weight npz exists (the gate is only the
+    weights' availability), else the torch ``lpips`` package's, else None."""
+    from humanliff_tpu_torch.eval.lpips import make_lpips
+
+    fn = make_lpips(device=device)
+    if fn is not None:
+        return fn
+    try:  # pragma: no cover - environment-dependent
+        import lpips  # type: ignore
+        import torch
+
+        net = lpips.LPIPS(net="vgg")
+
+        def compute(a: np.ndarray, b: np.ndarray) -> float:
+            ta = torch.from_numpy(np.asarray(a, np.float32)).permute(2, 0, 1)[None] * 2 - 1
+            tb = torch.from_numpy(np.asarray(b, np.float32)).permute(2, 0, 1)[None] * 2 - 1
+            with torch.no_grad():
+                return float(net(ta, tb))
+
+        return compute
+    except Exception:
+        return None

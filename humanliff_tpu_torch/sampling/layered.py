@@ -10,14 +10,15 @@ autocast and the diffusion arithmetic stays fp32.
 ``use_ddim`` samples by DDIM (eta 0) instead of the ancestral chain, over the
 diffusion's respaced steps (``timestep_respacing="ddim50"``).
 ``generate_layer_progressive`` also records the denoising trajectory.
+``plan_workload`` splits an N-sample workload into chains of the batch sizes
+of a cost table, and ``generate_workload`` runs them.
 
-Not ported yet: ``parallel_window`` (Picard sampling), ``plan_workload`` /
-``generate_workload`` (their cost table was measured on a TPU) and the sharded
-path.
+Not ported yet: ``parallel_window`` (Picard sampling) and the sharded path.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -167,3 +168,76 @@ def generate_all_layers(
             callback(name, samples)
         x_cond = samples
     return out
+
+
+# Seconds for one 4-layer x 250-step chain at the flagship geometry (27 x 256
+# x 256, 192 channels, bf16 weights and autocast, channels_last), by batch
+# size: 4 DDPM steps of generate_layer timed by CUDA events (median of 3)
+# times 1,000 / 4, measured by chip_smoke.py's quality phase (check 6) on an
+# NVIDIA H100 80GB HBM3 at a 700.00 W power limit. Only the batch sizes in
+# the table are planned with.
+DEFAULT_CHAIN_COSTS: Dict[int, float] = {1: 70.012, 8: 175.223}
+
+
+def plan_workload(num_samples: int,
+                  chain_costs: Optional[Dict[int, float]] = None) -> List[int]:
+    """Cheapest partition of an N-sample workload into per-chain batch sizes.
+
+    The reference's sample script runs 25 subjects x 4 layers strictly at B=1
+    (triplane_scripts/SynBody_triplane_sample_layered_*.sh). This solves the
+    covering problem exactly by DP: ``cost[n]`` = cheapest set of chains whose
+    batch sizes sum to >= n (overshoot = padded samples, allowed), drawn from
+    ``chain_costs`` (default :data:`DEFAULT_CHAIN_COSTS`). Returns the batch
+    sizes, largest first.
+    """
+    costs = dict(chain_costs or DEFAULT_CHAIN_COSTS)
+    if num_samples <= 0:
+        return []
+    best = [0.0] + [math.inf] * num_samples
+    choice = [0] * (num_samples + 1)
+    for n in range(1, num_samples + 1):
+        for b, c in costs.items():
+            prev = best[max(n - b, 0)] + c
+            if prev < best[n]:
+                best[n] = prev
+                choice[n] = b
+    plan = []
+    n = num_samples
+    while n > 0:
+        plan.append(choice[n])
+        n = max(n - choice[n], 0)
+    return sorted(plan, reverse=True)
+
+
+def generate_workload(
+    model,
+    diffusion: GaussianDiffusion,
+    generator: Optional[torch.Generator],
+    num_samples: int,
+    image_size: int = 256,
+    channels: int = 27,
+    num_layers: int = 4,
+    use_ddim: bool = False,
+    chain_costs: Optional[Dict[int, float]] = None,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """N-sample layered generation under :func:`plan_workload`'s plan.
+
+    Chain-major: each planned group runs its whole layer chain before the
+    next group starts, so conditioning stays within the group and peak memory
+    is one group's chain. The padded lanes of the last group are computed and
+    discarded. Returns ``{layer_name: (num_samples, H, W, C)}`` on ``device``.
+    """
+    per_layer: Dict[str, List[torch.Tensor]] = {}
+    produced = 0
+    for B in plan_workload(num_samples, chain_costs):
+        take = min(B, num_samples - produced)
+        if take <= 0:
+            break
+        out = generate_all_layers(model, diffusion, generator, batch_size=B,
+                                  image_size=image_size, channels=channels,
+                                  num_layers=num_layers, device=device, use_ddim=use_ddim)
+        for name, arr in out.items():
+            per_layer.setdefault(name, []).append(arr[:take])
+        produced += take
+    return {name: torch.cat(parts) for name, parts in per_layer.items()}

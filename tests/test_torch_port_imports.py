@@ -68,6 +68,14 @@ def test_canonical_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_quality_modules_are_checked():
+    files = set(_port_files())
+    for module in ("cli/recon_refit.py", "cli/quality_eval.py", "cli/quality_stage2.py",
+                   "cli/bench_decode.py", "eval/fidelity.py", "eval/lpips.py",
+                   "eval/metrics.py", "compat/lpips_import.py", "sampling/layered.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]
