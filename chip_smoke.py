@@ -95,6 +95,26 @@ Phases, each printed with its seconds and failed past its budget:
               chain at B 1 and B 8 (sampling/layered.py::DEFAULT_CHAIN_COSTS)
               and the plan for 25 samples; bench_decode at 512^2, its fast
               tier at least FITTED_FAST_VS_EXACT_DB from its exact tier     300 s
+    family    the rest of the model family at the flagship width, eight
+              checks: (a) humanliff_tpu_torch.cli.diff_train in the concat,
+              AdaGN, cross_attention and 3D-aware ControlNet modes, 3 steps
+              at B 2 on the fitted planes on the card (finite loss, s/step,
+              peak memory) and one seeded forward of each in bf16 against
+              fp32; (b) the flagship step (B 8 in microbatches of 2, bf16)
+              without and with --use_checkpoint: both peaks (checkpointing's
+              lower) and s/step, one microbatch's gradients against each
+              other; (c) image_sample through cli.main (4 samples at B 2,
+              10 respaced steps: finite, in [-1, 1], labels 0..3); (d)
+              image_nll on the fitted pair's 8 planes (20 respaced steps:
+              finite bits/dim, prior >= 0, every vb term >= VB_FLOOR) and
+              calc_bpd_loop at the tests' width, card against CPU; (e)
+              sr_train at its defaults (256/64, 128 channels, B 4) for 20
+              steps on 8 PNGs it writes (image_folder, area_downsample),
+              then sr_sample of 2 images from its checkpoint; (f)
+              diff_sample --all_layers --auto_plan true for 9 samples
+              (DDIM 10): chains of plan_workload(9), 9 rows per layer; (g)
+              python -m humanliff_tpu_torch.cli.main image-sample in its
+              own process; (h) no path launches the decoder kernel        300 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
@@ -102,9 +122,9 @@ mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
 recon_test, canonical training, and the canonical exact view, grid build,
 fast view and mesh, and each quality CLI: recon_refit, quality_eval with
 its exact and fast renders apart, quality_stage2 with its fine-tune and its
-decode apart, bench_decode with its exact and fast renders apart) and read
-just after it; Stage-2 training renders nothing
-and must launch the decoder kernel 0 times, a Stage-1 step, world or
+decode apart, bench_decode with its exact and fast renders apart, and each path of
+the family phase) and read just after it; Stage-2 training and the family
+phase's paths render nothing and must launch the decoder kernel 0 times, a Stage-1 step, world or
 canonical, exactly twice (the coarse and the fine pass). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
@@ -145,7 +165,8 @@ TIGHTCAP_CONFIG = os.path.join(REPO, "configs", "TightCap.txt")
 CANONICAL_REFERENCE = os.path.join(REPO, "runs", "quality", "canonical_jax_reference.npz")
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
-            "cli": 360, "train": 300, "recon": 240, "canonical": 240, "quality": 300}
+            "cli": 360, "train": 300, "recon": 240, "canonical": 240, "quality": 300,
+            "family": 300}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -2733,6 +2754,413 @@ def phase_quality(device, refit_steps: int = 20, campaign_flags=(), eval_flags=(
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# The rest of the model family: the UNet's other modes, checkpointing, the
+# stock sampler, bits/dim, super-resolution, the workload plan, the dispatcher
+# --------------------------------------------------------------------------
+
+# Check (a): diff_train in each mode the flagship does not use, 3 steps at B
+# 2 on the fitted planes on the card, and one forward in bf16 autocast held
+# against fp32 (TF32 off) by phase_generate's bar, relative L2 UNET_BF16_REL.
+FAMILY_MODES = (("concat", ("--cond_type", "concat")), ("AdaGN", ("--cond_type", "AdaGN")),
+                ("cross_attention", ("--cond_type", "cross_attention")),
+                ("controlnet_3d", ("--cond_type", "controlnet", "--use_3d_aware", "true")))
+UNET_BF16_REL = 5e-2
+# Check (b): one microbatch's gradients with and without activation
+# checkpointing, relative L2.
+REMAT_GRAD_REL = 1e-3
+# Check (d): a KL is at least 0; fp32 rounding may take it this far below.
+VB_FLOOR = -1e-4
+# Check (d): calc_bpd_loop on the card against the CPU, fp32, tests' width.
+BPD_CARD_VS_CPU_RTOL = 1e-4
+BPD_SMALL_KW = dict(image_size=32, num_channels=32, num_res_blocks=1,
+                    attention_resolutions="16,8", num_heads=2, timestep_respacing="8")
+
+
+def _flags(kwargs) -> list:
+    return [x for k, v in kwargs.items() for x in (f"--{k}", str(v))]
+
+
+def _family_modes(device, tmp, packed, model_kwargs, steps: int, led) -> dict:
+    """Check (a) for every mode of FAMILY_MODES."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch.cli import diff_train
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.train.stage2 import train_step
+
+    out = {}
+    for name, mode_flags in FAMILY_MODES:
+        logdir = os.path.join(tmp, f"train_{name}")
+        argv = ["--data_dir", packed, "--batch_size", "2", "--total_steps", str(steps),
+                "--log_interval", str(steps), "--skip_final_save", "true", "--logdir", logdir,
+                "--device", device.type, *_flags(model_kwargs), *mode_flags]
+        say(f"[family] (a) python -m humanliff_tpu_torch.cli.diff_train {' '.join(argv)}")
+        timer = StepTimer(train_step, device, profile_at=-1)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        diff_train.train_step = timer
+        try:
+            state = led.call(diff_train.main, f"diff_train {name}", argv)
+        finally:
+            diff_train.train_step = train_step
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+        n_params = state.params.numel()
+        del state
+        with open(os.path.join(logdir, "progress.json")) as f:
+            logs = [json.loads(line) for line in f]
+        check(len(logs) == 1 and math.isfinite(logs[0]["loss"]),
+              f"{name}: non-finite or missing loss {logs}")
+        s_step = statistics.median(timer.wall[1:]) if len(timer.wall) > 1 else timer.wall[0]
+
+        # One forward, bf16 against fp32, seeded weights in every layer.
+        kw = dict(model_kwargs, cond_type=mode_flags[1],
+                  use_3d_aware="--use_3d_aware" in mode_flags)
+        with torch.device(device):
+            model, _ = create_model_and_diffusion(**kw)
+        model.eval()
+        seed_weights(model, 0)
+        S, C = kw.get("image_size", 256), kw.get("in_channels", 27)
+        gen = torch.Generator(device=device).manual_seed(2)
+        x = torch.randn(2, C, S, S, generator=gen, device=device)
+        xc = torch.randn(2, C, S, S, generator=gen, device=device)
+        t = torch.tensor([500.0, 37.0], device=device)
+        y = torch.tensor([1, 3], device=device)
+        cl = torch.channels_last
+        with torch.no_grad():
+            ref = model(x, t, xc, y).float()
+            if device.type == "cuda":
+                model.to(dtype=torch.bfloat16, memory_format=cl)
+            with torch.autocast("cuda", dtype=torch.bfloat16, enabled=device.type == "cuda"):
+                got = model(x.to(memory_format=cl), t, xc.to(memory_format=cl), y).float()
+        rel = float((got - ref).norm() / ref.norm())
+        del model, ref, got
+        say(f"[family] (a) {name}: {n_params:,} parameters, loss {logs[0]['loss']:.6f} at step "
+            f"{steps}; s/step {s_step:.4f} (steps: {', '.join(f'{w:.4f}' for w in timer.wall)})"
+            + (f"; peak memory {peak_gb:.3f} GB" if peak_gb is not None else "")
+            + f"; bf16 vs fp32 forward relative L2 {rel:.4e} (bar {UNET_BF16_REL})")
+        check(rel <= UNET_BF16_REL, f"{name}: bf16 forward disagrees with fp32: {rel}")
+        out[name] = {"params": n_params, "loss": logs[0]["loss"], "s_per_step": s_step,
+                     "wall_s": timer.wall, "peak_gb": peak_gb, "bf16_rel": rel}
+    return out
+
+
+def _family_remat(device, packed, model_kwargs, batch_size: int, microbatch: int,
+                  steps: int = 4) -> dict:
+    """Check (b): the train phase's flagship step (B 8 in microbatches of 2, bf16)
+    with and without activation checkpointing: peak memory and s/step of
+    ``steps`` steps each (the first one left out of the median), then one
+    microbatch's gradients of each, lr 0 and no clipping."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.train.stage2 import Stage2Config, create_stage2_state, train_step
+
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(**model_kwargs)
+    seed_weights(model, 0)
+    planes = torch.from_numpy(np.load(packed)[0]).to(device).permute(0, 2, 3, 1).contiguous()
+    L, S, C = planes.shape[0], planes.shape[1], planes.shape[3]
+    idx = torch.arange(batch_size, device=device) % L
+    g = torch.Generator(device=device).manual_seed(7)
+    t = torch.randint(0, diffusion.num_timesteps, (batch_size,), generator=g, device=device)
+    noise = torch.randn(batch_size, S, S, C, generator=g, device=device)
+    cfg = Stage2Config(lr=0.0, microbatch=microbatch, grad_clip_value=0.0, grad_clip_norm=0.0,
+                       use_bf16=device.type == "cuda")
+    rec, grads = {}, {}
+    for remat in (False, True):
+        model.use_checkpoint = remat
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        state = create_stage2_state(model, cfg, diffusion.num_timesteps)
+        timer = StepTimer(train_step, device, profile_at=-1)
+        for _ in range(steps):
+            timer(state, model, diffusion, cfg, {"planes": planes, "idx": idx, "y": idx % L},
+                  t=t, noise=noise)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+        one = slice(0, microbatch)
+        train_step(state, model, diffusion, cfg, {"planes": planes, "idx": idx[one],
+                                                  "y": idx[one] % L}, t=t[one], noise=noise[one])
+        grads[remat] = state.grads.double()
+        del state
+        rec["remat" if remat else "plain"] = {
+            "s_per_step": statistics.median(timer.wall[1:]), "wall_s": timer.wall,
+            "peak_gb": peak_gb}
+    rel = float((grads[True] - grads[False]).norm() / grads[False].norm())
+    del grads, model
+    plain, remat = rec["plain"], rec["remat"]
+    say(f"[family] (b) flagship step, B {batch_size} in microbatches of {microbatch}: without "
+        f"checkpointing {plain['s_per_step']:.4f} s/step, peak {plain['peak_gb']} GB; with "
+        f"{remat['s_per_step']:.4f} s/step, peak {remat['peak_gb']} GB; one microbatch's "
+        f"gradients relative L2 {rel:.4e} (bar {REMAT_GRAD_REL})")
+    check(rel <= REMAT_GRAD_REL, f"checkpointed gradients disagree: {rel}")
+    if device.type == "cuda":
+        check(remat["peak_gb"] < plain["peak_gb"],
+              f"checkpointing did not lower the peak: {remat['peak_gb']} vs {plain['peak_gb']}")
+    rec["grad_rel"] = rel
+    return rec
+
+
+def _bpd_card_vs_cpu(device) -> dict:
+    """Check (d), second half: calc_bpd_loop at the tests' width (image 32,
+    32 channels, 8 respaced steps) on the card and on the CPU through
+    image_nll's own model function (fp32), the same seeded weights, data and
+    injected noise."""
+    import torch
+
+    from humanliff_tpu_torch.cli.image_nll import model_fn_for
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+
+    model, diffusion = create_model_and_diffusion(**BPD_SMALL_KW)
+    seed_weights(model, 1)
+    model.eval()
+    rng = np.random.default_rng(5)
+    S, T = BPD_SMALL_KW["image_size"], diffusion.num_timesteps
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, S, S, 27)).astype(np.float32))
+    noise = [torch.from_numpy(rng.standard_normal((2, S, S, 27)).astype(np.float32))
+             for _ in range(T)]
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        out = diffusion.calc_bpd_loop(model_fn_for(model.to(dev)), x.to(dev), step_noise=noise)
+        runs[dev.type] = {k: v.double().cpu() for k, v in out.items()}
+    got, want = runs[device.type], runs["cpu"]
+    rel = {k: float(((got[k] - want[k]).abs() / want[k].abs().clamp(min=1e-6)).max())
+           for k in want}
+    say(f"[family] (d) calc_bpd_loop at image {S}, {T} steps, card vs CPU, max relative: "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in rel.items()})} (rtol "
+        f"{BPD_CARD_VS_CPU_RTOL}); total bpd {got['total_bpd'].tolist()}")
+    for k in want:
+        check(torch.allclose(got[k], want[k], rtol=BPD_CARD_VS_CPU_RTOL, atol=1e-6),
+              f"calc_bpd_loop {k}: card and CPU disagree ({rel[k]:.3e})")
+    return {"rel": rel}
+
+
+def _write_images(folder: str, n: int, size: int, seed: int = 0) -> None:
+    """``n`` smooth seeded RGB PNGs (two classes by file name) for sr_train."""
+    from humanliff_tpu_torch.utils.video import write_png
+
+    os.makedirs(folder)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for i in range(n):
+        f = rng.uniform(1, 6, 3)
+        img = 0.5 + 0.5 * np.sin(2 * np.pi * (f[:, None, None] * xx + f[::-1, None, None] * yy
+                                              + rng.uniform(0, 1, (3, 1, 1))))
+        write_png(os.path.join(folder, f"{'ab'[i % 2]}_{i:02d}.png"),
+                  (img.transpose(1, 2, 0) * 255).astype(np.uint8))
+
+
+class _Ledger(PathLedger):
+    """A PathLedger that also runs a whole entry point as a named path."""
+
+    def call(self, fn, key: str, *args, **kwargs):
+        from humanliff_tpu_torch import kernels
+
+        sync(self.device)
+        before = kernels.LAUNCHES["fused_decoder"]
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sync(self.device)
+        self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+        self.launches[key] = (self.launches.get(key, 0)
+                              + kernels.LAUNCHES["fused_decoder"] - before)
+        self.calls[key] = self.calls.get(key, 0) + 1
+        return out
+
+
+def phase_family(device, model_kwargs=None, planes=None, steps: int = 3,
+                 remat_batch=(8, 2), sample_respacing: str = "10", nll_respacing: str = "20",
+                 sr_flags=(), sr_steps: int = 20, sr_size: int = 256, plan_respacing="ddim10",
+                 subprocess_timeout: int = 300) -> dict:
+    """The family phase's checks (a)-(h) (module docstring), in a temporary
+    directory. The keyword arguments narrow a CPU rehearsal: ``model_kwargs``
+    (default: the flagship width), ``planes`` (N, L, 3, C3, S, S) in place of
+    the fitted campaign pair, ``sr_flags`` added to sr_train's and
+    sr_sample's defaults with ``sr_size`` their large size."""
+    import statistics
+    import subprocess as sp
+
+    import torch
+
+    import humanliff_tpu_torch.ops.fused_decoder  # noqa: F401  (registers the launch count)
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import diff_sample, image_nll, sr_sample, sr_train
+    from humanliff_tpu_torch.cli import main as dispatcher
+    from humanliff_tpu_torch.data.triplane_data import pack_subject_planes
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.sampling.layered import LAYER_NAMES, plan_workload
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+    from humanliff_tpu_torch.train.stage2 import train_step
+
+    model_kwargs = dict(model_kwargs or {})
+    S = model_kwargs.get("image_size", 256)
+    C = model_kwargs.get("in_channels", 27)
+    flags = _flags(model_kwargs)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    kernels.reset_launches()
+    try:
+        with _Ledger(device) as led:
+            sources = [PLANES_NPZ, PLANES_NPZ_1]
+            if planes is not None:
+                sources = [os.path.join(tmp, f"subject_{i:06d}.npz") for i in range(len(planes))]
+                for path, p in zip(sources, planes):
+                    ckpt.save_subject_planes(path, p, 0)
+            packed = os.path.join(tmp, "planes.npy")
+            images = pack_subject_planes(sources, packed)  # (N, L, C, S, S)
+            rec = {"modes": _family_modes(device, tmp, packed, model_kwargs, steps, led)}
+            rec["remat"] = _family_remat(device, packed, model_kwargs, *remat_batch)
+
+            # (c) image_sample through the dispatcher, the seeded flagship UNet.
+            with torch.device(device):
+                model, _ = create_model_and_diffusion(**model_kwargs)
+            seed_weights(model, 0)
+            unet = os.path.join(tmp, "unet.npz")
+            np.savez(unet, **{k: v.detach().cpu().numpy() for k, v in model.state_dict().items()})
+            del model
+            out_c = os.path.join(tmp, "image_sample")
+            argv = ["image-sample", "--model_npz", unet, "--timestep_respacing", sample_respacing,
+                    "--num_samples", "4", "--batch_size", "2", "--out_dir", out_c,
+                    "--device", device.type, *flags]
+            say(f"[family] (c) python -m humanliff_tpu_torch.cli.main {' '.join(argv)}")
+            check(led.call(dispatcher.main, "image_sample", argv) == 0, "image-sample failed")
+            with np.load(os.path.join(out_c, f"samples_4x{S}x{S}x{C}.npz")) as z:
+                x, labels = z["arr_0"], z["arr_1"]
+            say(f"[family] (c) image_sample in {led.seconds['image_sample']:.3f} s: {x.shape}, "
+                f"range [{x.min():.4f}, {x.max():.4f}], labels {labels.tolist()}")
+            check(x.shape == (4, S, S, C) and np.isfinite(x).all() and np.abs(x).max() <= 1.0,
+                  f"image_sample: {x.shape}, finite {np.isfinite(x).all()}")
+            check(labels.shape == (4,) and set(labels.tolist()) <= {0, 1, 2, 3},
+                  f"image_sample labels {labels}")
+
+            # (d) image_nll on the fitted planes, and the loop card vs CPU.
+            data = os.path.join(tmp, "planes_nhwc.npz")
+            np.savez(data, images.reshape(-1, *images.shape[2:]).transpose(0, 2, 3, 1))
+            argv = ["--model_npz", unet, "--data_npz", data, "--timestep_respacing",
+                    nll_respacing, "--batch_size", "2", "--device", device.type, *flags]
+            say(f"[family] (d) python -m humanliff_tpu_torch.cli.image_nll {' '.join(argv)}")
+            # PyTorch's default cuDNN TF32, as a user's run has it: the script
+            # turns TF32 off for its precision checks, and fp32 convolutions
+            # without it take about 6.6 s a flagship forward at B 2 on the H100.
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                bpd = led.call(image_nll.main, "image_nll", argv)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            say(f"[family] (d) image_nll in {led.seconds['image_nll']:.3f} s over "
+                f"{len(bpd['total_bpd'])} planes: total bpd {bpd['total_bpd'].tolist()}, prior "
+                f"{bpd['prior_bpd'].tolist()}, least vb term {bpd['vb'].min():.4e}")
+            check(np.isfinite(bpd["total_bpd"]).all(), "image_nll: non-finite bits/dim")
+            check((bpd["prior_bpd"] >= 0).all(), f"negative prior bpd {bpd['prior_bpd']}")
+            check(bpd["vb"].min() >= VB_FLOOR, f"a vb term below {VB_FLOOR}: {bpd['vb'].min()}")
+            rec["bpd"] = {"total_bpd": bpd["total_bpd"].tolist(),
+                          "seconds": led.seconds["image_nll"], **_bpd_card_vs_cpu(device)}
+
+            # (e) sr_train at its defaults on written PNGs, then sr_sample.
+            folder = os.path.join(tmp, "sr_images")
+            _write_images(folder, 8, sr_size)
+            logdir = os.path.join(tmp, "sr")
+            argv = ["--data_dir", folder, "--logdir", logdir, "--total_steps", str(sr_steps),
+                    "--log_interval", str(sr_steps), "--device", device.type, *sr_flags]
+            say(f"[family] (e) python -m humanliff_tpu_torch.cli.sr_train {' '.join(argv)}")
+            timer = StepTimer(train_step, device, profile_at=-1)
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            sr_train.train_step = timer
+            try:
+                state = led.call(sr_train.main, "sr_train", argv)
+            finally:
+                sr_train.train_step = train_step
+            sr_peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+            with open(os.path.join(logdir, "progress.json")) as f:
+                sr_logs = [json.loads(line) for line in f]
+            check(state.step == sr_steps and all(math.isfinite(m["loss"]) for m in sr_logs),
+                  f"sr_train: step {state.step}, logs {sr_logs}")
+            del state
+            out_e = os.path.join(tmp, "sr_samples")
+            argv = ["--model_dir", logdir, "--timestep_respacing", sample_respacing,
+                    "--num_samples", "2", "--out_dir", out_e, "--device", device.type, *sr_flags]
+            say(f"[family] (e) python -m humanliff_tpu_torch.cli.sr_sample {' '.join(argv)}")
+            path = led.call(sr_sample.main, "sr_sample", argv)
+            up = ckpt.load_samples_npz(path)
+            sr_s = statistics.median(timer.wall[1:])
+            say(f"[family] (e) sr_train {sr_steps} steps, s/step {sr_s:.4f}, loss "
+                f"{sr_logs[-1]['loss']:.6f}"
+                + (f", peak memory {sr_peak:.3f} GB" if sr_peak is not None else "")
+                + f"; sr_sample in {led.seconds['sr_sample']:.3f} s: {up.shape}, range "
+                f"[{up.min():.4f}, {up.max():.4f}]")
+            check(up.shape == (2, sr_size, sr_size, 3) and np.isfinite(up).all(),
+                  f"sr_sample: {up.shape}, finite {np.isfinite(up).all()}")
+            rec["sr"] = {"s_per_step": sr_s, "wall_s": timer.wall, "peak_gb": sr_peak,
+                         "loss": sr_logs[-1]["loss"], "sample_s": led.seconds["sr_sample"]}
+
+            # (f) diff_sample --all_layers --auto_plan for 9 samples.
+            chains = []
+            real_chain = diff_sample.generate_all_layers
+
+            def chain(*args, **kwargs):
+                chains.append(kwargs["batch_size"])
+                return real_chain(*args, **kwargs)
+
+            out_f = os.path.join(tmp, "plan")
+            argv = ["--model_npz", unet, "--all_layers", "--auto_plan", "true",
+                    "--num_samples", "9", "--use_ddim", "true", "--timestep_respacing",
+                    plan_respacing, "--out_dir", out_f, "--device", device.type, *flags]
+            say(f"[family] (f) python -m humanliff_tpu_torch.cli.diff_sample {' '.join(argv)}")
+            diff_sample.generate_all_layers = chain
+            try:
+                led.call(diff_sample.main, "diff_sample auto_plan", argv)
+            finally:
+                diff_sample.generate_all_layers = real_chain
+            rows = {}
+            for name in LAYER_NAMES:
+                rows[name] = ckpt.load_samples_npz(os.path.join(out_f, f"samples_{name}.npz")).shape
+            say(f"[family] (f) auto_plan in {led.seconds['diff_sample auto_plan']:.3f} s: chains "
+                f"{chains} (plan_workload(9) = {plan_workload(9)}), samples {rows}")
+            check(chains == plan_workload(9), f"chains {chains}, plan {plan_workload(9)}")
+            check(all(r == (9, S, S, C) for r in rows.values()), f"samples {rows}")
+            rec["plan"] = {"chains": chains, "seconds": led.seconds["diff_sample auto_plan"]}
+
+            # (g) The dispatcher as a user runs it, in its own process.
+            out_g = os.path.join(tmp, "dispatched")
+            cmd = [sys.executable, "-m", "humanliff_tpu_torch.cli.main", "image-sample",
+                   "--model_npz", unet, "--timestep_respacing", sample_respacing,
+                   "--num_samples", "2", "--batch_size", "2", "--out_dir", out_g,
+                   "--device", device.type, *flags]
+            say(f"[family] (g) {' '.join(cmd[2:])}")
+            t0 = time.perf_counter()
+            proc = sp.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=subprocess_timeout)
+            g_s = time.perf_counter() - t0
+            with np.load(os.path.join(out_g, f"samples_2x{S}x{S}x{C}.npz")) as z:
+                xg = z["arr_0"]
+            say(f"[family] (g) exit {proc.returncode} in {g_s:.3f} s: {xg.shape}; its last "
+                f"line: {proc.stdout.strip().splitlines()[-1]}")
+            check(proc.returncode == 0 and xg.shape == (2, S, S, C) and np.isfinite(xg).all(),
+                  f"python -m humanliff_tpu_torch.cli.main: exit {proc.returncode}, "
+                  f"{proc.stderr[-2000:]}")
+            rec["dispatch_s"] = g_s
+
+            # (h) None of these paths renders: the decoder kernel never runs.
+            paths = {f"family {k}": n for k, n in led.launches.items()}
+            say(f"[launches] family paths: {json.dumps(paths)} (expected 0 each)")
+            check(not any(paths.values()), f"a family path launched fused_decoder: {paths}")
+            check(kernels.LAUNCHES["fused_decoder"] == 0,
+                  f"the family phase launched fused_decoder {kernels.LAUNCHES['fused_decoder']} "
+                  "times")
+            rec["paths"] = paths
+            rec["seconds"] = dict(led.seconds)
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2856,6 +3284,19 @@ def main(argv=None) -> int:
                    f"{json.dumps(quality['chain']['costs'])}; bench_decode exact / fast "
                    f"{quality['bench']['result']['exact_s_per_view_median']:.4f} / "
                    f"{quality['bench']['result']['fast_s_per_view_median']:.4f} s/view")
+
+    with Phase("family", cuda_sync):
+        family = phase_family(device)
+        paths.update(family["paths"])
+    modes = family["modes"]
+    summary.append("family: diff_train s/step (peak GB) " + ", ".join(
+        f"{k} {m['s_per_step']:.4f} ({m['peak_gb']:.3f})" for k, m in modes.items())
+        + f"; flagship step without / with checkpointing {family['remat']['plain']['s_per_step']:.4f}"
+        f" / {family['remat']['remat']['s_per_step']:.4f} s, peak "
+        f"{family['remat']['plain']['peak_gb']:.3f} / {family['remat']['remat']['peak_gb']:.3f} GB; "
+        f"image_sample {family['seconds']['image_sample']:.3f} s, image_nll "
+        f"{family['bpd']['seconds']:.3f} s, sr_train {family['sr']['s_per_step']:.4f} s/step, "
+        f"auto_plan {family['plan']['seconds']:.3f} s")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "

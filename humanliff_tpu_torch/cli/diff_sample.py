@@ -34,9 +34,14 @@ Differences from the JAX CLI:
   fused kernel takes fp32 weights); the JAX CLI casts the weights to bf16 too.
 - ``--image_scaling`` scales the intrinsics of ``--cameras_json`` cameras;
   the JAX CLI passes it only to the capture datasets.
-- Not accepted: ``--auto_plan``, ``--parallel_window``, ``--parallel_tol``;
-  the model flags ``use_3d_aware`` and ``use_checkpoint`` (not ported). One
-  device only.
+- ``--parallel_window`` and ``--parallel_tol`` are not accepted: Picard
+  sampling (``sampling/parallel.py``) is not ported. One device only.
+
+``--all_layers --auto_plan true`` splits ``--num_samples`` into the chain
+batches of ``sampling/layered.py::plan_workload`` (its table of measured
+chain costs) instead of ``--batch_size`` each. Every model the factory
+builds samples: ``--cond_type``, ``--use_3d_aware``; ``--use_checkpoint``
+does nothing without gradients.
 
 ``--view_dataset synbody`` or ``tightcap`` decodes the capture's novel views
 145 onward (``--data_root``; the SMPL-X models of ``--smplx_model_dir``, or
@@ -84,6 +89,7 @@ from humanliff_tpu_torch.sampling.layered import (
     generate_all_layers,
     generate_layer,
     generate_layer_progressive,
+    plan_workload,
     planes_image_to_triplane,
 )
 from humanliff_tpu_torch.train import checkpoint as ckpt
@@ -118,6 +124,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--layer_idx", type=int, default=0)
     p.add_argument("--all_layers", action="store_true")
+    p.add_argument("--auto_plan", type=_bool, default=False,
+                   help="all_layers mode: ignore --batch_size and split --num_samples "
+                        "by the measured-cost plan (sampling/layered.py::plan_workload)")
     p.add_argument("--sample_npz", type=str, default=None,
                    help="previous layer's samples npz (x_cond)")
     p.add_argument("--use_ddim", type=_bool, default=False)
@@ -176,7 +185,7 @@ def load_train_weights(model_dir: str, step, rate: str):
     return ema
 
 
-def _load_model(args, device):
+def _load_model(args, device, bf16: bool = True):
     cfg = {k: getattr(args, k) for k in model_and_diffusion_defaults()}
     with torch.device(device):
         model, diffusion = create_model_and_diffusion(**cfg)
@@ -189,8 +198,9 @@ def _load_model(args, device):
                            channel_mult_for(args.image_size), attention_ds)
     model.load_state_dict(sd, strict=True)
     model.eval()
-    if device.type == "cuda":  # bf16 weights, channels_last: the main path's layout
-        model.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    if device.type == "cuda":  # channels_last (and bf16 weights): the main path's layout
+        model.to(dtype=torch.bfloat16 if bf16 else torch.float32,
+                 memory_format=torch.channels_last)
     return model, diffusion
 
 
@@ -285,6 +295,17 @@ def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device)
               f"in {mesh_s:.3f} s")
 
 
+def chain_batches(args) -> list:
+    """The batch size of each ``--all_layers`` chain: ``plan_workload``'s plan
+    with ``--auto_plan`` (JAX diff_sample.py:366-375), else ``--batch_size``
+    for every chain."""
+    if args.auto_plan:
+        plan = plan_workload(args.num_samples)
+        print(f"[plan] mixed-batch plan for {args.num_samples}: {plan}")
+        return plan
+    return [args.batch_size] * math.ceil(args.num_samples / args.batch_size)
+
+
 def _write_json(path: str, obj) -> None:
     with open(path, "w") as f:
         json.dump(obj, f, indent=2)
@@ -303,7 +324,7 @@ def main(argv=None) -> None:
     if args.all_layers:
         all_samples = {name: [] for name in LAYER_NAMES}
         done = 0
-        for B in [args.batch_size] * math.ceil(args.num_samples / args.batch_size):
+        for B in chain_batches(args):
             layers = generate_all_layers(model, diffusion, generator=generator, batch_size=B,
                                          image_size=S, channels=C, device=device,
                                          use_ddim=args.use_ddim)

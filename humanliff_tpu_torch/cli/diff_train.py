@@ -26,8 +26,12 @@ Differences from the JAX CLI:
   flax's; timesteps and noise come from a ``torch.Generator``.
 - Metrics stay on the card until the log interval; the JAX CLI's per-step
   readback (a wedge workaround for its remote TPU) is not ported.
-- Not ported: ``--data_name imagenet`` (ROADMAP A13), ``--use_3d_aware`` and
-  ``--use_checkpoint`` (accepted; true raises), TensorBoard logging.
+- Not ported: ``--data_name imagenet`` (ROADMAP A13), TensorBoard logging.
+
+Every ``--cond_type`` trains (``controlnet``, ``concat``, ``AdaGN``,
+``cross_attention``, ``""``), with or without ``--use_3d_aware``;
+``--use_checkpoint true`` recomputes each UNet block's activations in the
+backward (``torch.utils.checkpoint``), as the JAX CLI rematerialises them.
 """
 
 from __future__ import annotations
@@ -67,8 +71,7 @@ def _bool(s: str) -> bool:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("humanliff_tpu_torch diff-train")
-    defaults = {**model_and_diffusion_defaults(), "use_3d_aware": False, "use_checkpoint": False}
-    for k, v in defaults.items():
+    for k, v in model_and_diffusion_defaults().items():
         p.add_argument(f"--{k}", type=_bool if isinstance(v, bool) else type(v), default=v)
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--data_dir", type=str, default="synthetic")
@@ -173,8 +176,6 @@ def _resume(args, state) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     device = device_for(args.device)
-    if args.use_3d_aware or args.use_checkpoint:
-        raise NotImplementedError("--use_3d_aware and --use_checkpoint are not ported")
     os.makedirs(args.logdir, exist_ok=True)
     log = loglib.configure(args.logdir, ["stdout", "csv", "json"])
 

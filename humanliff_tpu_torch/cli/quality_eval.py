@@ -43,7 +43,7 @@ import sys
 import numpy as np
 import torch
 
-from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels, device_for
 
 
 def build_parser():
@@ -61,7 +61,7 @@ def build_parser():
     p.add_argument("--n_samples", type=int, default=128)
     p.add_argument("--n_importance", type=int, default=128)
     p.add_argument("--triplane_dim", type=int, default=256)
-    p.add_argument("--triplane_ch", type=int, default=27)
+    p.add_argument("--triplane_ch", type=decoder_channels, default=DECODER_CHANNELS)
     p.add_argument("--use_bf16", type=lambda s: s.lower() == "true", default=False,
                    help="bf16 render inputs during training (reference parity "
                         "default: fp32, run_nerf_batch.py:206)")

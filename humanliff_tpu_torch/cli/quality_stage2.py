@@ -45,9 +45,11 @@ Differences from the JAX CLI:
   state comes across through ``scripts/export_jax_weights.py --stage1``, or
   ``recon_refit`` rebuilds one from plane exports and a decoder sidecar).
 - One device, no mesh: ``--diff_batch_size`` need not divide a device count.
-  The diffusion leg runs without activation checkpointing (``diff_train``
-  does not port ``--use_checkpoint``): the flagship train state at batch 2
-  fits an H100's memory without it.
+  The diffusion leg trains without activation checkpointing. The JAX
+  campaign passes ``--use_checkpoint true`` because the flagship at batch 2
+  does not fit a 16 GB TPU without it; on an 80 GB H100 it peaks at about
+  21 GB without, and checkpointing would double the step's time for nothing
+  (PERF.md, the family phase). The numbers are the same either way.
 - ``--device`` (default ``cuda``, which raises where CUDA is missing; ``cpu``
   on request). Random numbers come from seeded ``torch.Generator``s (sampling
   ``--seed`` + 3, scoring ``--seed`` + 7), not JAX keys. The sampling and
@@ -70,6 +72,7 @@ import torch
 
 from humanliff_tpu_torch.nerf.renderer import render_image_masked
 from humanliff_tpu_torch.sampling.layered import LAYER_NAMES
+from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels
 
 CAMPAIGN_COMMAND = "python -m humanliff_tpu_torch.cli.quality_stage2"
 
@@ -83,7 +86,7 @@ def build_parser():
     p.add_argument("--num_instance", type=int, default=2)
     p.add_argument("--image_size", type=int, default=128)
     p.add_argument("--triplane_dim", type=int, default=256)
-    p.add_argument("--triplane_ch", type=int, default=27)
+    p.add_argument("--triplane_ch", type=decoder_channels, default=DECODER_CHANNELS)
     p.add_argument("--n_samples", type=int, default=128)
     p.add_argument("--n_importance", type=int, default=128)
     # Fine-tune leg.

@@ -8,7 +8,7 @@ Inputs are nested dicts of numpy arrays, as flax ``params`` trees come out of
 - Dense ``kernel (in, out)`` -> Linear ``weight (out, in)``.
 - Conv ``kernel (kh, kw, in, out)`` (HWIO) -> Conv2d ``weight (out, in, kh, kw)``.
 - Attention qkv / proj_out Dense -> Conv1d ``weight (out, in, 1)``.
-- GroupNorm ``scale`` -> ``weight``.
+- GroupNorm and LayerNorm ``scale`` -> ``weight``.
 
 The walk mirrors ``humanliff_tpu/compat/torch_import.py::unet_params_from_state_dict``
 in reverse, so a port state dict maps back through it to the same flax tree.
@@ -99,7 +99,40 @@ def _resblock(sd: StateDict, prefix: str, p) -> None:
         _conv(sd, f"{prefix}.skip_connection", p["skip_conv"])
 
 
+def _layernorm(sd: StateDict, prefix: str, p) -> None:
+    sd[f"{prefix}.weight"] = _t(p["scale"])
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _cross_attention(sd: StateDict, prefix: str, p) -> None:
+    for name in ("to_q", "to_k", "to_v"):
+        sd[f"{prefix}.{name}.weight"] = _t(np.asarray(p[name]["kernel"]).T)
+    _dense(sd, f"{prefix}.to_out.0", p["to_out"])
+
+
+def _transformer_block(sd: StateDict, prefix: str, p) -> None:
+    _cross_attention(sd, f"{prefix}.attn1", p["attn1"])
+    _cross_attention(sd, f"{prefix}.attn2", p["attn2"])
+    for n in range(3):
+        _layernorm(sd, f"{prefix}.norm{n + 1}", p[f"LayerNorm_{n}"])
+    _dense(sd, f"{prefix}.ff.0.proj", p["GEGLU_0"]["Dense_0"])
+    _dense(sd, f"{prefix}.ff.2", p["Dense_0"])
+
+
+def _spatial_transformer(sd: StateDict, prefix: str, p) -> None:
+    _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
+    _dense(sd, f"{prefix}.proj_in", p["proj_in"])
+    depth = sum(1 for k in p if k.startswith("block_"))
+    for i in range(depth):
+        _transformer_block(sd, f"{prefix}.transformer_blocks.{i}", p[f"block_{i}"])
+    _dense(sd, f"{prefix}.proj_out", p["proj_out"]["Dense_0"])
+
+
 def _attn(sd: StateDict, prefix: str, p) -> None:
+    """A self-attention block, or a spatial transformer (cross_attention mode)."""
+    if "proj_in" in p:
+        _spatial_transformer(sd, prefix, p)
+        return
     _groupnorm(sd, f"{prefix}.norm", p["GroupNorm32_0"])
     _conv1d(sd, f"{prefix}.qkv", p["qkv"])
     _conv1d(sd, f"{prefix}.proj_out", p["proj_out"]["Dense_0"])
@@ -111,8 +144,21 @@ def unet_state_dict(
     channel_mult: Sequence[int] = (1, 1, 2, 2, 4, 4),
     attention_ds: Sequence[int] = (8, 16, 32),
 ) -> StateDict:
-    """JAX ControlNet ``UNetModel`` variables -> port ``UNetModel`` state dict."""
+    """JAX ``UNetModel`` or ``SuperResModel`` variables -> the port model's
+    state dict, in every conditioning mode; the mode is read off the tree.
+
+    The ControlNet, self-attention and ResBlock names (3D-aware ones
+    included: their output conv reads 3x channels) are the reference's, as
+    the JAX importer ``compat/torch_import.py`` reads them. The AdaGN and
+    cross-attention layers (``cond_conv1``, ``cond_conv2``, ``cond_linear``,
+    ``...transformer_blocks.N.attn1.to_q``, ...) are named after the JAX
+    module tree and LDM; they are not yet checked against a reference
+    checkpoint (ROADMAP A14). A ``SuperResModel`` tree (its UNet under
+    ``unet``) maps to the names of the port's subclass, without a prefix.
+    """
     p = _params(params)
+    if "unet" in p:
+        p = p["unet"]
     sd: StateDict = {}
     _dense(sd, "time_embed.0", p["time_mlp_1"])
     _dense(sd, "time_embed.2", p["time_mlp_2"])
@@ -156,9 +202,14 @@ def unet_state_dict(
     _groupnorm(sd, "out.0", p["out_norm"])
     _conv(sd, "out.2", p["out_conv"]["Conv_0"])
 
-    encoder("input_blocks_cond", "cond_")
-    for i in range(n_enc):
-        _conv(sd, f"input_blocks_proj_cond.{i}", p[f"cond_proj_{i}"]["Conv_0"])
+    if "cond_in_conv" in p:  # controlnet
+        encoder("input_blocks_cond", "cond_")
+        for i in range(n_enc):
+            _conv(sd, f"input_blocks_proj_cond.{i}", p[f"cond_proj_{i}"]["Conv_0"])
+    if "cond_conv1" in p:  # AdaGN, cross_attention
+        _conv(sd, "cond_conv1", p["cond_conv1"])
+        _conv(sd, "cond_conv2", p["cond_conv2"])
+        _dense(sd, "cond_linear", p["cond_linear"])
     return sd
 
 

@@ -16,8 +16,9 @@ and a per-step noise source from the caller, which is how the tests feed both
 packages the same noise. A DDIM step draws its noise at any ``eta``, as JAX
 splits a key for it, so one noise source serves every loop.
 
-Training (``training_losses``, gaussian_diffusion.py:688-772) takes its
-noise from the caller or from a ``torch.Generator``, for the same reason.
+Training (``training_losses``, gaussian_diffusion.py:688-772) and the
+bits-per-dim loop (``calc_bpd_loop``) take their noise from the caller or
+from a ``torch.Generator``, for the same reason.
 """
 
 from __future__ import annotations
@@ -381,3 +382,51 @@ class GaussianDiffusion:
         terms["mse"] = mean_flat((target - model_output) ** 2)
         terms["loss"] = terms["mse"] + terms["vb"] if "vb" in terms else terms["mse"]
         return terms
+
+    # ---------------- bits per dim ----------------
+
+    def _prior_bpd(self, x_start: torch.Tensor) -> torch.Tensor:
+        """KL(q(x_T | x_0) || N(0, I)) in bits per dim, per example
+        (gaussian_diffusion.py:774-790)."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1, dtype=torch.int64,
+                       device=x_start.device)
+        mean, _, log_var = self.q_mean_variance(x_start, t)
+        kl = normal_kl(mean, log_var, torch.zeros_like(mean), torch.zeros_like(log_var))
+        return mean_flat(kl) / math.log(2.0)
+
+    @torch.no_grad()
+    def calc_bpd_loop(self, model_fn: ModelFn, x_start: torch.Tensor,
+                      generator: Optional[torch.Generator] = None, x_cond=None,
+                      clip_denoised: bool = True, model_kwargs: Optional[Dict[str, Any]] = None,
+                      step_noise: Optional[StepNoise] = None) -> Dict[str, torch.Tensor]:
+        """The whole variational bound in bits per dim (gaussian_diffusion.py:792-847):
+        ``_vb_terms_bpd`` at every t from T-1 down to 0 on ``q_sample(x_start,
+        t, noise)``, plus the prior term.
+
+        Returns ``total_bpd`` and ``prior_bpd`` (B,), and ``vb``,
+        ``xstart_mse`` and ``mse`` (the predicted noise's) (B, T), column i
+        the i-th t taken (t = T-1-i), as the JAX function returns them.
+        ``step_noise[i]`` (or ``step_noise(i)``) is the noise at the i-th t;
+        missing, it is drawn from ``generator`` on x_start's device.
+        """
+        B = x_start.shape[0]
+        vb, xstart_mse, eps_mse = [], [], []
+        for i in range(self.num_timesteps):
+            t = torch.full((B,), self.num_timesteps - 1 - i, dtype=torch.int64,
+                           device=x_start.device)
+            if step_noise is None:
+                noise = torch.randn(x_start.shape, generator=generator, device=x_start.device)
+            else:
+                noise = step_noise(i) if callable(step_noise) else step_noise[i]
+                noise = noise.to(device=x_start.device, dtype=torch.float32)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self._vb_terms_bpd(model_fn, x_start, x_t, t, x_cond, clip_denoised,
+                                     model_kwargs)
+            eps = self._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            eps_mse.append(mean_flat((eps - noise) ** 2))
+        vb = torch.stack(vb, dim=1)
+        prior_bpd = self._prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
+                "xstart_mse": torch.stack(xstart_mse, dim=1), "mse": torch.stack(eps_mse, dim=1)}

@@ -1,5 +1,7 @@
 """Model and diffusion factory (port of ``humanliff_tpu/models/factory.py``;
-reference improved_diffusion/script_util.py)."""
+reference improved_diffusion/script_util.py): the channel-mult table, the
+attention-resolution parsing and the AdaGN-mode NUM_CLASSES=1000 quirk
+(script_util.py:130-133)."""
 
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ def model_and_diffusion_defaults() -> dict:
         rescale_learned_sigmas=True,
         use_scale_shift_norm=True,
         cond_type="controlnet",
+        use_3d_aware=False,
+        use_checkpoint=False,
     )
 
 
@@ -64,10 +68,14 @@ def create_model(
     cond_type: str,
     dropout: float,
     channel_mult: Optional[Tuple[int, ...]] = None,
+    use_3d_aware: bool = False,
+    use_checkpoint: bool = False,
 ) -> UNetModel:
     if channel_mult is None:
         channel_mult = channel_mult_for(image_size)
     attention_ds = tuple(image_size // int(r) for r in attention_resolutions.split(","))
+    # The reference's AdaGN-mode NUM_CLASSES=1000 quirk (script_util.py:130-133).
+    num_classes = 1000 if cond_type == "AdaGN" and not use_3d_aware else 4
     return UNetModel(
         in_channels=in_channels,
         model_channels=num_channels,
@@ -76,11 +84,14 @@ def create_model(
         attention_resolutions=attention_ds,
         dropout=dropout,
         channel_mult=channel_mult,
-        num_classes=4 if class_cond else None,  # the four clothing layers
+        num_classes=num_classes if class_cond else None,  # 4: the four clothing layers
         num_heads=num_heads,
         num_heads_upsample=num_heads_upsample,
         use_scale_shift_norm=use_scale_shift_norm,
         cond_type=cond_type,
+        use_3d_aware=use_3d_aware,
+        use_checkpoint=use_checkpoint,
+        image_size=image_size,
     )
 
 
@@ -101,6 +112,8 @@ def create_model_and_diffusion(**kwargs) -> Tuple[UNetModel, GaussianDiffusion]:
         use_scale_shift_norm=cfg["use_scale_shift_norm"],
         cond_type=cfg["cond_type"],
         dropout=cfg["dropout"],
+        use_3d_aware=cfg["use_3d_aware"],
+        use_checkpoint=cfg["use_checkpoint"],
     )
     diffusion = create_diffusion(
         steps=cfg["diffusion_steps"],

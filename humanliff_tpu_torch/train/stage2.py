@@ -184,10 +184,17 @@ def gather_batch(planes: torch.Tensor, idx: torch.Tensor, y: torch.Tensor):
 
 
 def model_fn_for(model: nn.Module):
-    """NHWC in, fp32 NHWC out: the diffusion's view of the NCHW UNet."""
+    """NHWC in, fp32 NHWC out: the diffusion's view of the NCHW UNet. An
+    unconditioned model (``cond_type=""``) gets no x_cond; a
+    ``SuperResModel`` takes its NHWC ``low_res`` as a keyword."""
+    use_cond = model.cond_type != ""
 
-    def fn(x, ts, x_cond, y=None):
-        out = model(x.permute(0, 3, 1, 2), ts, x_cond.permute(0, 3, 1, 2), y)
+    def nchw(a):
+        return None if a is None else a.permute(0, 3, 1, 2)
+
+    def fn(x, ts, x_cond, y=None, low_res=None):
+        args = (nchw(x), ts) if low_res is None else (nchw(x), ts, nchw(low_res))
+        out = model(*args, x_cond=nchw(x_cond) if use_cond else None, y=y)
         return out.permute(0, 2, 3, 1).float()
 
     return fn
@@ -207,15 +214,16 @@ def train_step(
 
     ``batch`` is materialised, ``{"x", "x_cond", "y"}`` with x and x_cond
     (B, H, W, C), or device-resident, ``{"planes", "idx", "y"}``
-    (:func:`gather_batch`). ``t`` (B,) and ``noise`` (B, H, W, C) may be given;
-    whatever is missing is drawn from ``generator``.
+    (:func:`gather_batch`). A super-resolution batch is ``{"x", "low_res"}``
+    (no x_cond; y only with ``class_cond``). ``t`` (B,) and ``noise``
+    (B, H, W, C) may be given; whatever is missing is drawn from ``generator``.
     """
     model.eval()  # dropout off, as the JAX step's deterministic=True
     if "planes" in batch:
         x, x_cond = gather_batch(batch["planes"], batch["idx"], batch["y"])
     else:
-        x, x_cond = batch["x"], batch["x_cond"]
-    y = batch["y"]
+        x, x_cond = batch["x"], batch.get("x_cond")
+    y, low_res = batch.get("y"), batch.get("low_res")
     B, device, T = x.shape[0], x.device, diffusion.num_timesteps
 
     lsm = LossSecondMomentResampler(T) if cfg.schedule_sampler == "loss-second-moment" else None
@@ -241,9 +249,12 @@ def train_step(
     for s in range(0, B, mb):
         sl = slice(s, s + mb)
         kwargs = {"y": y[sl]} if cfg.class_cond else {}
+        if low_res is not None:
+            kwargs["low_res"] = low_res[sl]
         with torch.autocast(device.type, dtype=torch.bfloat16, enabled=cfg.use_bf16):
-            losses = diffusion.training_losses(model_fn, x[sl], x_cond[sl], t[sl],
-                                               model_kwargs=kwargs, noise=noise[sl])["loss"]
+            losses = diffusion.training_losses(
+                model_fn, x[sl], None if x_cond is None else x_cond[sl], t[sl],
+                model_kwargs=kwargs, noise=noise[sl])["loss"]
         # Each microbatch's sum over B: the microbatches add up to the batch mean.
         micro = (losses * weights[sl]).sum() / B
         micro.backward()

@@ -7,6 +7,7 @@ of ``key = value`` lines (CLI wins). The canonical SynBody/TightCap defaults liv
 
 Differences from the JAX module: ``--device`` (``cuda`` or ``cpu``) is added,
 and ``device_for`` turns it into a device for every CLI of the port;
+``--triplane_ch`` refuses any width but 27 (``decoder_channels``);
 ``--dispatch_sync_every`` (a readback cadence for the JAX package's remote
 TPU) is dropped, and like any unknown flag it is ignored
 (``parse_known_args``).
@@ -29,6 +30,21 @@ def str2bool(v) -> bool:
     if s in ("false", "0", "no", ""):
         return False
     raise argparse.ArgumentTypeError(f"expected true/false, got {v!r}")
+
+
+DECODER_CHANNELS = 27
+_DECODER_CHANNELS_WHY = (
+    "the port's NeRF decoder reads 27 plane channels only: the fused decoder kernel "
+    "is built for 27 -> 128, PE(4) (nerf/decoder.py)")
+
+
+def decoder_channels(value) -> int:
+    """argparse type of ``--triplane_ch``: refuses any width but 27, with the
+    reason (the JAX decoder takes any width)."""
+    ch = int(value)
+    if ch != DECODER_CHANNELS:
+        raise argparse.ArgumentTypeError(f"got {ch}; {_DECODER_CHANNELS_WHY}")
+    return ch
 
 
 def _coerce(value: str):
@@ -87,7 +103,7 @@ def stage1_parser() -> argparse.ArgumentParser:
     p.add_argument("--lrate_decay", type=int, default=500)
     p.add_argument("--n_iteration", type=int, default=480000)
     p.add_argument("--triplane_dim", type=int, default=256)
-    p.add_argument("--triplane_ch", type=int, default=27)
+    p.add_argument("--triplane_ch", type=decoder_channels, default=DECODER_CHANNELS)
     p.add_argument("--tv_loss", type=str2bool, default=True)
     p.add_argument("--tv_loss_coef", type=float, default=1e-4)
     p.add_argument("--l1_loss_coef", type=float, default=1e-4)
@@ -125,6 +141,9 @@ def parse_with_config(parser: argparse.ArgumentParser, argv: Optional[List[str]]
         for k, v in overrides.items():
             if k in defaults and getattr(args, k) == defaults[k]:
                 setattr(args, k, v)
+        if getattr(args, "triplane_ch", DECODER_CHANNELS) != DECODER_CHANNELS:
+            parser.error(f"triplane_ch = {args.triplane_ch} in {args.config}: "
+                         f"{_DECODER_CHANNELS_WHY}")
     return args
 
 

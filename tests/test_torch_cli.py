@@ -203,9 +203,9 @@ def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu(model_npz, tmp_path,
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", [["--auto_plan", "true"], ["--parallel_window", "4"],
-                                  ["--parallel_tol", "5e-3"], ["--model_dir", "x"],
-                                  ["--stage1_ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--parallel_window", "4"], ["--parallel_tol", "5e-3"],
+                                  ["--all_layers", "--auto_plan", "true", "--parallel_window", "2"],
+                                  ["--model_dir", "x"], ["--stage1_ckpt", "x"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         diff_sample.build_parser().parse_args(["--model_npz", "m.npz", *flag])

@@ -137,8 +137,6 @@ def test_packed_planes_on_and_off_the_device(tmp_path, device_data, capsys):
 def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="A13"):
         _train(tmp_path, "--data_name", "imagenet")
-    with pytest.raises(NotImplementedError):
-        _train(tmp_path, "--use_3d_aware", "true")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         diff_train.main(MODEL + ["--logdir", str(tmp_path)])

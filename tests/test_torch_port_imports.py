@@ -76,6 +76,15 @@ def test_quality_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_family_modules_are_checked():
+    files = set(_port_files())
+    for module in ("cli/image_sample.py", "cli/image_nll.py", "cli/sr_train.py",
+                   "cli/sr_sample.py", "cli/main.py", "data/image_folder.py",
+                   "models/attention.py", "models/unet.py", "models/factory.py",
+                   "diffusion/gaussian.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]
