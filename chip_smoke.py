@@ -115,6 +115,28 @@ Phases, each printed with its seconds and failed past its budget:
               (DDIM 10): chains of plan_workload(9), 9 rows per layer; (g)
               python -m humanliff_tpu_torch.cli.main image-sample in its
               own process; (h) no path launches the decoder kernel        300 s
+    rest      the reference's checkpoints and the rest of the single-device
+              surface, four checks: (a) a Stage-1 .tar under the reference's
+              names (module. prefixes; the committed decoder and fitted
+              pair) imported (compat/torch_import.py), the fitted exact view
+              through the imported decoder bit for bit the committed one's;
+              a seeded flagship UNet state dict with head-major qkv rows
+              written by torch.save, imported (qkv_layout "reference": the
+              seeded weights bit for bit), one AttentionBlock against the
+              head-major attention of improved-diffusion's text (fp32,
+              ATTN_REFERENCE_REL), saved as an npz and sampled by
+              diff_sample --decode (DDIM 10, 4 views, 64^3 mesh) with the
+              imported decoder; (b) layer 0 at the flagship width, B 1, 50
+              respaced DDPM steps: the sequential chain, then Picard
+              (sampling/parallel.py) at window 8, tol 0 (within
+              PICARD_TOL0_REL of it) and tol 5e-3, the same x_T and
+              per-timestep noise: wall s, model calls, mean slide; (c)
+              diff_train --data_name imagenet, 3 steps at B 2 on 8 PNGs it
+              writes (finite loss, s/step, peak memory); (d)
+              render_image_chunked of view 0 of the fitted planes against
+              the masked render inside the box (CHUNKED_ATOL), its launches
+              2 x ceil(N / 16,384), a Timer section and triplane_to_rgb
+              under timed                                                 240 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
@@ -122,10 +144,13 @@ mesh, the CLI, Stage-2 training, recon_train, recon_ft, the Stage-1 eval,
 recon_test, canonical training, and the canonical exact view, grid build,
 fast view and mesh, and each quality CLI: recon_refit, quality_eval with
 its exact and fast renders apart, quality_stage2 with its fine-tune and its
-decode apart, bench_decode with its exact and fast renders apart, and each path of
-the family phase) and read just after it; Stage-2 training and the family
-phase's paths render nothing and must launch the decoder kernel 0 times, a Stage-1 step, world or
-canonical, exactly twice (the coarse and the fine pass). The last three lines are a
+decode apart, bench_decode with its exact and fast renders apart, each path of
+the family phase, and each path of the rest phase: the imported decoder's
+exact view, diff_sample on the imported weights, the three Picard runs, image
+training and the chunked view) and read just after it. Stage-2 training, the
+family phase's paths, Picard and image training render nothing and must
+launch the decoder kernel 0 times, a Stage-1 step, world or canonical,
+exactly twice (the coarse and the fine pass). The last three lines are a
 ``{"kernels": [...]}`` record, the card's name and power limit from
 nvidia-smi, and ``{"ok": true, "device": {...}}``. Any failed check or blown
 budget exits non-zero before the result. Without CUDA, or run outside a
@@ -166,7 +191,7 @@ CANONICAL_REFERENCE = os.path.join(REPO, "runs", "quality", "canonical_jax_refer
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
             "cli": 360, "train": 300, "recon": 240, "canonical": 240, "quality": 300,
-            "family": 300}
+            "family": 300, "rest": 240}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -3161,6 +3186,381 @@ def phase_family(device, model_kwargs=None, planes=None, steps: int = 3,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# the rest phase: reference checkpoints, Picard, image-folder training, the
+# chunked render
+# --------------------------------------------------------------------------
+
+# Check (a): one flagship AttentionBlock with the imported weights against the
+# head-major attention of improved-diffusion's text on the same raw rows, fp32
+# (TF32 off): relative L2 of the attention branch (output less input). Both
+# sides are fp32 attention over the same operands, summed in another order.
+ATTN_REFERENCE_REL = 1e-4
+# Check (b): Picard at tol 0 against the sequential chain under the same
+# per-timestep noise, relative L2 of the samples: the batched (W x B) UNet
+# call's bf16 numerics differ from B 1's; the bar is the script's bf16-vs-fp32
+# bar of one forward (UNET_BF16_REL).
+PICARD_STEPS, PICARD_WINDOW, PICARD_TOL = 50, 8, 5e-3
+PICARD_TOL0_REL = UNET_BF16_REL
+# Check (d): render_image_chunked against render_image_masked on the rays in
+# the box, max abs on rgb, acc and depth. Both render each ray alone (per-ray
+# sampling, a per-point kernel), so they should agree to rounding.
+CHUNKED_ATOL = 1e-5
+
+
+def _rest_attention(device, model, raw, label: str) -> dict:
+    """Check (a) 5: ``model``'s first AttentionBlock (imported, port rows)
+    against ``reference_attention`` of its raw head-major rows, and the port
+    block with the raw rows as they are (the JAX importer's layout)."""
+    import torch
+
+    from humanliff_tpu_torch.models.attention import AttentionBlock
+
+    name, block = next((n, m) for n, m in model.named_modules() if isinstance(m, AttentionBlock))
+    C = block.qkv.in_channels
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(1, C, 32, 32, generator=gen, device=device)
+    w, b = raw[f"{name}.qkv.weight"].to(device), raw[f"{name}.qkv.bias"].to(device)
+    with torch.no_grad():
+        out = block(x)
+        ref = reference_attention(block, x, w, b, block.num_heads)
+        port_qkv = (block.qkv.weight.clone(), block.qkv.bias.clone())
+        block.qkv.weight.copy_(w)
+        block.qkv.bias.copy_(b)
+        as_is = block(x)
+        block.qkv.weight.copy_(port_qkv[0])
+        block.qkv.bias.copy_(port_qkv[1])
+    branch = (ref - x).norm()
+    rel = float((out - ref).norm() / branch)
+    rel_as_is = float((as_is - ref).norm() / branch)
+    say(f"[rest] (a) {label} {name} ({C} channels, {block.num_heads} heads, 32^2): imported "
+        f"vs head-major reference, relative L2 of the attention branch {rel:.3e} (bar "
+        f"{ATTN_REFERENCE_REL}); the rows as they are (JAX's importer) {rel_as_is:.3e}")
+    check(rel <= ATTN_REFERENCE_REL, f"imported attention disagrees with the reference: {rel}")
+    check(rel_as_is > 100 * ATTN_REFERENCE_REL,
+          f"the unpermuted rows should attend differently at {block.num_heads} heads: {rel_as_is}")
+    return {"block": name, "rel": rel, "rel_rows_as_is": rel_as_is}
+
+
+def reference_attention(block, x, qkv_weight, qkv_bias, num_heads: int):
+    """improved-diffusion's ``AttentionBlock.forward`` with
+    ``QKVAttention.forward``: qkv reshaped to (B * heads, 3 * head_dim, T)
+    before the split, so the rows are head-major; ``block`` supplies the norm
+    and proj_out."""
+    import torch
+    import torch.nn.functional as F
+
+    b, c, *spatial = x.shape
+    x = x.reshape(b, c, -1)
+    qkv = F.conv1d(block.norm(x), qkv_weight, qkv_bias)
+    qkv = qkv.reshape(b * num_heads, -1, qkv.shape[2])
+    ch = qkv.shape[1] // 3
+    q, k, v = torch.split(qkv, ch, dim=1)
+    scale = 1 / math.sqrt(math.sqrt(ch))
+    weight = torch.einsum("bct,bcs->bts", q * scale, k * scale)
+    weight = torch.softmax(weight.float(), dim=-1).type(weight.dtype)
+    a = torch.einsum("bts,bcs->bct", weight, v)
+    return (x + block.proj_out(a.reshape(b, -1, a.shape[-1]))).reshape(b, c, *spatial)
+
+
+def _rest_reference(device, tmp, led, model_kwargs, render_size: int, sample_flags) -> dict:
+    """Check (a): the reference's checkpoints, written here, imported and run."""
+    import glob
+
+    import torch
+
+    from humanliff_tpu_torch.cli import diff_sample
+    from humanliff_tpu_torch.compat.from_jax import decoder_state_dict
+    from humanliff_tpu_torch.compat.torch_import import (
+        import_stage1_checkpoint,
+        import_unet_checkpoint,
+        qkv_to_reference,
+    )
+    from humanliff_tpu_torch.data.raygen import full_image_rays
+    from humanliff_tpu_torch.data.view_datasets import NovelViewCameras
+    from humanliff_tpu_torch.mesh.io import read_ply
+    from humanliff_tpu_torch.models.attention import AttentionBlock
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.nerf.decoder import NeRFDecoder
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig, render_image_masked
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+
+    rec = {}
+    # 1. A Stage-1 .tar under the reference's names, DDP prefixes included.
+    with np.load(DECODER_NPZ) as f:
+        dec_sd = decoder_state_dict(dict(f))
+    table = np.stack([ckpt.load_subject_planes(p) for p in (PLANES_NPZ, PLANES_NPZ_1)])
+    sd = {f"module.{k}": v for k, v in dec_sd.items()}
+    sd["module.tri_planes"] = torch.from_numpy(table)
+    tar = os.path.join(tmp, "060000.tar")
+    torch.save({"global_step": 60000, "network_fn_state_dict": sd}, tar)
+    t0 = time.perf_counter()
+    imported, step = import_stage1_checkpoint(tar)
+    rec["stage1_import_s"] = time.perf_counter() - t0
+    check(step == 60000 and np.array_equal(imported["planes"].numpy(), table),
+          f"Stage-1 import: step {step}, planes {tuple(imported['planes'].shape)}")
+    dec = NeRFDecoder()
+    dec.load_state_dict(imported["decoder"], strict=True)
+    dec = dec.to(device).eval()
+    decoder_npz = os.path.join(tmp, "decoder_imported.npz")
+    ckpt.save_decoder_npz(decoder_npz, imported["decoder"], step)
+    say(f"[rest] (a) Stage-1 .tar ({os.path.getsize(tar) / 1e6:.1f} MB, planes "
+        f"{tuple(table.shape)}) imported in {rec['stage1_import_s']:.3f} s, step {step}")
+
+    # 2. The fitted exact view through the imported decoder and the committed one.
+    S = render_size
+    K, R, T = NovelViewCameras(S).camera(0)
+    ro, rd, near, far, mask = full_image_rays(S, S, K, R, T, BOUNDS)
+    cfg = RenderConfig(n_samples=128, n_importance=128, perturb=False, density_noise=False)
+    planes = imported["planes"][0, 3].to(device=device, dtype=torch.bfloat16)
+    ray_args = (ro, rd, near, far, mask, BOUNDS, cfg)
+    committed = render_image_masked(load_fitted_decoder(device), planes, *ray_args)
+    got = led.call(render_image_masked, "imported decoder: exact view (fitted)", dec, planes,
+                   *ray_args)
+    same = all(torch.equal(got[k], committed[k]) for k in ("rgb", "acc", "depth"))
+    n_rays = int(mask.sum())
+    say(f"[rest] (a) exact view {S}^2 through the imported decoder in "
+        f"{led.seconds['imported decoder: exact view (fitted)']:.3f} s: bit for bit the "
+        f"committed decoder's: {same}")
+    check(same, "the imported decoder renders otherwise than the committed one")
+    expect_launches(device, led.launches["imported decoder: exact view (fitted)"],
+                    2 * math.ceil(n_rays / RENDER_CHUNK), "imported decoder: exact view (fitted)")
+
+    # 3. A seeded UNet state dict in the reference's head-major qkv rows.
+    with torch.device(device):
+        model, _ = create_model_and_diffusion(**model_kwargs)
+    seed_weights(model, 7)
+    heads = {n: m.num_heads for n, m in model.named_modules() if isinstance(m, AttentionBlock)}
+    raw = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    for name, h in heads.items():
+        for kind in ("weight", "bias"):
+            raw[f"{name}.qkv.{kind}"] = qkv_to_reference(raw[f"{name}.qkv.{kind}"], h)
+    pt = os.path.join(tmp, "ema_0.9999_reference.pt")
+    t0 = time.perf_counter()
+    torch.save(raw, pt)
+    save_s = time.perf_counter() - t0
+    with torch.device(device):
+        target, _ = create_model_and_diffusion(**model_kwargs)
+    t0 = time.perf_counter()
+    import_unet_checkpoint(pt, target)
+    sync(device)
+    rec["unet_import_s"] = time.perf_counter() - t0
+    seeded = model.state_dict()
+    same = all(torch.equal(v, seeded[k]) for k, v in target.state_dict().items())
+    n_params = sum(p.numel() for p in target.parameters())
+    say(f"[rest] (a) UNet .pt ({n_params:,} parameters, {len(heads)} attention blocks, heads "
+        f"{sorted(set(heads.values()))}; {os.path.getsize(pt) / 1e9:.3f} GB written in "
+        f"{save_s:.3f} s) imported in {rec['unet_import_s']:.3f} s: the seeded weights bit for "
+        f"bit: {same}")
+    check(same, "import of the head-major UNet does not give back the seeded weights")
+    del model, seeded
+    target.eval()
+    rec["attention"] = _rest_attention(device, target, raw, "flagship")
+    unet_npz = os.path.join(tmp, "unet_imported.npz")
+    np.savez(unet_npz, **{k: v.detach().cpu().numpy() for k, v in target.state_dict().items()})
+    del target, raw
+
+    # 4. diff_sample --decode on the imported weights.
+    out_dir = os.path.join(tmp, "sample")
+    argv = ["--model_npz", unet_npz, "--decoder_npz", decoder_npz, "--decode", "--layer_idx", "0",
+            "--num_samples", "1", "--out_dir", out_dir, "--device", device.type,
+            *_flags(model_kwargs), *sample_flags]
+    say(f"[rest] (a) python -m humanliff_tpu_torch.cli.diff_sample {' '.join(argv)}")
+    args = diff_sample.build_parser().parse_args(argv)
+    key = "diff_sample --decode (imported weights)"
+    led.call(diff_sample.main, key, argv)
+    samples = ckpt.load_samples_npz(os.path.join(out_dir, "samples_person.npz"))
+    shape = (1, args.image_size, args.image_size, args.in_channels)
+    pngs = glob.glob(os.path.join(out_dir, "person_s0_v*.png"))
+    videos = [f for f in os.listdir(out_dir) if f.startswith("person_s0.")
+              and f.endswith((".mp4", ".avi"))]
+    verts, tris = read_ply(os.path.join(out_dir, "person_s0.ply"))
+    say(f"[rest] (a) diff_sample in {led.seconds[key]:.3f} s: samples {samples.shape}, range "
+        f"[{samples.min():.4f}, {samples.max():.4f}]; {len(pngs)} PNGs, video {videos}, PLY "
+        f"{len(verts)} verts / {len(tris)} tris")
+    check(samples.shape == shape and np.isfinite(samples).all()
+          and np.abs(samples).max() <= 1.0 + 1e-5, f"diff_sample samples {samples.shape}")
+    check(len(pngs) == args.num_views and len(videos) == 1, f"{len(pngs)} PNGs, video {videos}")
+    expected, kept, n_in = cli_expected_launches(args, samples, device)
+    expect_launches(device, led.launches[key], expected,
+                    f"{key} (grid, {kept} of {n_in} rays kept, mesh {args.mesh_resolution}^3)")
+    rec.update(decoder_npz=decoder_npz, ray_args=ray_args, committed=committed, mask=mask,
+               diff_sample_s=led.seconds[key])
+    return rec
+
+
+def _rest_picard(device, model_kwargs, steps: int, led) -> dict:
+    """Check (b): layer 0 by the sequential chain and by Picard at tol 0 and
+    at PICARD_TOL, the same x_T and per-timestep noise."""
+    import torch
+
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.sampling.layered import _model_fn, generate_layer
+    from humanliff_tpu_torch.sampling.parallel import TimestepNoise, parallel_p_sample_loop
+
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(
+            **{**model_kwargs, "timestep_respacing": str(steps)})
+    seed_weights(model, 0)
+    model.eval()
+    cuda = device.type == "cuda"
+    if cuda:  # diff_sample's layout
+        model.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    S = model_kwargs.get("image_size", 256)
+    C = model_kwargs.get("in_channels", 27)
+    T = diffusion.num_timesteps
+    shape = (1, S, S, C)
+    x_T = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(11),
+                      device=device)
+    noise = TimestepNoise(12, shape, T, device)
+    fn = _model_fn(model, cuda)
+    zeros = torch.zeros(shape, device=device)
+    y = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.no_grad():  # warm the B 1 and the window's batch
+        for b in (1, PICARD_WINDOW):
+            fn(zeros.expand(b, *shape[1:]), torch.zeros(b, device=device),
+               zeros.expand(b, *shape[1:]), y.expand(b))
+    sync(device)
+    seq = led.call(generate_layer, "picard: sequential chain", model, diffusion, 0, None,
+                   batch_size=1, image_size=S, channels=C, noise=x_T, step_noise=noise,
+                   device=device)
+    rec = {"sequential": {"s": led.seconds["picard: sequential chain"], "model_calls": T}}
+    for tol in (0.0, PICARD_TOL):
+        key = f"picard: window {PICARD_WINDOW}, tol {tol:g}"
+        out, calls = led.call(parallel_p_sample_loop, key, diffusion, fn, shape, x_cond=zeros,
+                              y=y, window=PICARD_WINDOW, tol=tol, noise=x_T, step_noise=noise,
+                              device=device)
+        rel = float((out - seq).norm() / seq.norm())
+        rec[f"tol {tol:g}"] = {"s": led.seconds[key], "model_calls": calls,
+                               "mean_slide": T / calls, "rel": rel}
+        check(out.shape == shape and bool(torch.isfinite(out).all())
+              and float(out.abs().max()) <= 1.0 + 1e-5, f"{key}: bad samples")
+    for k, r in rec.items():
+        say(f"[rest] (b) {k}: {r['s']:.3f} s wall, {r['model_calls']} model calls"
+            + (f" (mean slide {r['mean_slide']:.4f} steps), relative L2 to the sequential "
+               f"chain {r['rel']:.4e}" if "rel" in r else ""))
+    check(rec["tol 0"]["model_calls"] == T, f"tol 0 took {rec['tol 0']['model_calls']} calls")
+    check(rec["tol 0"]["rel"] <= PICARD_TOL0_REL,
+          f"Picard at tol 0 is {rec['tol 0']['rel']:.4e} from the sequential chain "
+          f"(bar {PICARD_TOL0_REL})")
+    say(f"[rest] (b) tol 0 within {PICARD_TOL0_REL} of the sequential chain "
+        f"({T} respaced DDPM steps, B 1, window {PICARD_WINDOW})")
+    return rec
+
+
+def _rest_image_train(device, tmp, led, model_kwargs, steps: int, train_flags) -> dict:
+    """Check (c): diff_train --data_name imagenet on PNGs written here."""
+    import statistics
+
+    import torch
+
+    from humanliff_tpu_torch.cli import diff_train
+    from humanliff_tpu_torch.train.stage2 import train_step
+
+    S = model_kwargs.get("image_size", 256)
+    folder = os.path.join(tmp, "images")
+    _write_images(folder, 8, S)
+    logdir = os.path.join(tmp, "image_train")
+    kw = {**model_kwargs, "in_channels": 3, "out_channels": 3}
+    argv = ["--data_name", "imagenet", "--data_dir", folder, "--batch_size", "2",
+            "--total_steps", str(steps), "--log_interval", "1", "--skip_final_save", "true",
+            "--logdir", logdir, "--device", device.type, *_flags(kw), *train_flags]
+    say(f"[rest] (c) python -m humanliff_tpu_torch.cli.diff_train {' '.join(argv)}")
+    timer = StepTimer(train_step, device, profile_at=-1)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    diff_train.train_step = timer
+    try:
+        state = led.call(diff_train.main, "diff_train --data_name imagenet", argv)
+    finally:
+        diff_train.train_step = train_step
+    peak = torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda" else None
+    with open(os.path.join(logdir, "progress.json")) as f:
+        logs = [json.loads(line) for line in f]
+    s_step = statistics.median(timer.wall[1:]) if len(timer.wall) > 1 else timer.wall[0]
+    say(f"[rest] (c) {steps} steps at B 2 on 8 PNGs of {S}^2: losses "
+        f"{[round(m['loss'], 6) for m in logs]}, s/step {s_step:.4f} (median of steps 2-"
+        f"{steps})" + (f", peak memory {peak:.3f} GB" if peak is not None else ""))
+    check(state.step == steps and len(logs) == steps
+          and all(math.isfinite(m["loss"]) for m in logs), f"image training: {logs}")
+    return {"s_per_step": s_step, "wall_s": timer.wall, "peak_gb": peak,
+            "loss": [m["loss"] for m in logs]}
+
+
+def _rest_chunked(device, led, ref, chunk: int) -> dict:
+    """Check (d): render_image_chunked of the fitted planes against the
+    committed decoder's masked render of (a); Timer, timed, triplane_to_rgb."""
+    import torch
+
+    from humanliff_tpu_torch.nerf.renderer import render_image_chunked
+    from humanliff_tpu_torch.sampling.viz import triplane_to_rgb
+    from humanliff_tpu_torch.utils.profiling import Timer, timed
+
+    ro, rd, near, far, mask, box, cfg = ref["ray_args"]
+    dec = load_fitted_decoder(device)
+    planes = load_fitted_planes(3).to(device=device, dtype=torch.bfloat16)
+    timer = Timer()
+    key = "chunked view (fitted)"
+    with timer.section(key) as r:
+        r["out"] = led.call(render_image_chunked, key, dec, planes, ro, rd, near, far, box, cfg,
+                            chunk=chunk)
+    out = r["out"]
+    sel = torch.as_tensor(np.asarray(mask).reshape(-1).astype(bool)).to(device)
+    err = {k: float((out[k][sel] - ref["committed"][k][sel]).abs().max())
+           for k in ("rgb", "acc", "depth")}
+    N = ro.shape[0]
+    say(f"[rest] (d) render_image_chunked, {N} rays in chunks of {chunk}: "
+        f"{timer.summary()[key]:.3f} s (Timer); inside the box vs render_image_masked, max "
+        f"abs {json.dumps(err)} (tol {CHUNKED_ATOL})")
+    check(all(torch.isfinite(out[k][sel]).all() for k in out), "non-finite chunked render")
+    check(max(err.values()) <= CHUNKED_ATOL, f"chunked render disagrees: {err}")
+    expect_launches(device, led.launches[key], 2 * math.ceil(N / chunk), key)
+    seconds, img = timed(triplane_to_rgb, planes, warmup=1, iters=3)
+    D = planes.shape[-1]
+    say(f"[rest] (d) triplane_to_rgb of the fitted planes (timed, 3 calls): {seconds:.4f} s a "
+        f"call, {img.shape} {img.dtype}, range [{img.min()}, {img.max()}]")
+    check(img.shape == (D, 3 * D, 3) and img.dtype == np.uint8, f"triplane_to_rgb {img.shape}")
+    return {"s": timer.summary()[key], "err": err, "viz_s": seconds}
+
+
+def phase_rest(device, model_kwargs=None, render_size: int = 512, picard_steps=PICARD_STEPS,
+               sample_flags=("--use_ddim", "true", "--timestep_respacing", "ddim10",
+                             "--num_views", "4", "--mesh_resolution", "64"),
+               train_steps: int = 3, train_flags=(), chunk: int = RENDER_CHUNK) -> dict:
+    """The rest phase's checks (a)-(d) (module docstring), in a temporary
+    directory. The keyword arguments narrow a CPU rehearsal: ``model_kwargs``
+    (default: the flagship width), ``render_size`` of the fitted view,
+    ``picard_steps``, ``sample_flags`` added to (a)'s diff_sample and
+    ``train_flags`` to (c)'s diff_train."""
+    import humanliff_tpu_torch.ops.fused_decoder  # noqa: F401  (registers the launch count)
+    from humanliff_tpu_torch import kernels
+
+    model_kwargs = dict(model_kwargs or {})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rest_")
+    kernels.reset_launches()
+    try:
+        with _Ledger(device) as led:
+            rec = {"reference": _rest_reference(device, tmp, led, model_kwargs, render_size,
+                                                sample_flags)}
+            rec["picard"] = _rest_picard(device, model_kwargs, picard_steps, led)
+            rec["image_train"] = _rest_image_train(device, tmp, led, model_kwargs,
+                                                   train_steps, train_flags)
+            rec["chunked"] = _rest_chunked(device, led, rec["reference"], chunk)
+            quiet = [k for k in led.launches if k.startswith("picard") or "imagenet" in k]
+            zeros = {k: led.launches[k] for k in quiet}
+            say(f"[launches] rest paths that render nothing: {json.dumps(zeros)} (expected 0 "
+                "each)")
+            check(not any(zeros.values()), f"a path that renders nothing launched: {zeros}")
+            rec["paths"] = {f"rest {k}": n for k, n in led.launches.items()}
+            rec["seconds"] = dict(led.seconds)
+        for k in ("committed", "ray_args", "mask"):
+            rec["reference"].pop(k)
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3297,6 +3697,20 @@ def main(argv=None) -> int:
         f"image_sample {family['seconds']['image_sample']:.3f} s, image_nll "
         f"{family['bpd']['seconds']:.3f} s, sr_train {family['sr']['s_per_step']:.4f} s/step, "
         f"auto_plan {family['plan']['seconds']:.3f} s")
+
+    with Phase("rest", cuda_sync):
+        rest = phase_rest(device)
+        paths.update(rest["paths"])
+    pic, ref = rest["picard"], rest["reference"]
+    summary.append(
+        f"rest: reference UNet import {ref['unet_import_s']:.3f} s, its diff_sample --decode "
+        f"{ref['diff_sample_s']:.3f} s; Picard {PICARD_STEPS} steps sequential / window "
+        f"{PICARD_WINDOW} tol 0 / tol {PICARD_TOL:g}: {pic['sequential']['s']:.3f} / "
+        f"{pic['tol 0']['s']:.3f} / {pic[f'tol {PICARD_TOL:g}']['s']:.3f} s "
+        f"({pic[f'tol {PICARD_TOL:g}']['model_calls']} calls, tol 0 rel "
+        f"{pic['tol 0']['rel']:.3e}); imagenet diff_train "
+        f"{rest['image_train']['s_per_step']:.4f} s/step; chunked view "
+        f"{rest['chunked']['s']:.3f} s")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "

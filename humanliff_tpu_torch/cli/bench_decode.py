@@ -47,6 +47,7 @@ from humanliff_tpu_torch.nerf.fastpath import GridCache, build_density_grid, ren
 from humanliff_tpu_torch.nerf.renderer import RenderConfig, render_image_masked
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.utils.config import device_for, str2bool
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def build_parser():
@@ -74,6 +75,7 @@ def _sync(device) -> None:
 
 
 def main(argv=None):
+    setup_runtime()
     args = build_parser().parse_args(argv)
     device = device_for(args.device)
 

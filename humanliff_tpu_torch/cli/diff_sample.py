@@ -34,14 +34,19 @@ Differences from the JAX CLI:
   fused kernel takes fp32 weights); the JAX CLI casts the weights to bf16 too.
 - ``--image_scaling`` scales the intrinsics of ``--cameras_json`` cameras;
   the JAX CLI passes it only to the capture datasets.
-- ``--parallel_window`` and ``--parallel_tol`` are not accepted: Picard
-  sampling (``sampling/parallel.py``) is not ported. One device only.
+- One device only: ``--parallel_window`` runs the Picard window on it (the
+  JAX CLI shards the window across several devices where it has them).
 
 ``--all_layers --auto_plan true`` splits ``--num_samples`` into the chain
 batches of ``sampling/layered.py::plan_workload`` (its table of measured
-chain costs) instead of ``--batch_size`` each. Every model the factory
-builds samples: ``--cond_type``, ``--use_3d_aware``; ``--use_checkpoint``
-does nothing without gradients.
+chain costs) instead of ``--batch_size`` each. ``--parallel_window W`` samples
+each layer's ancestral chain by sliding-window Picard iteration
+(``sampling/parallel.py``; accepted guesses within ``--parallel_tol``); a
+window means no ``--auto_plan`` plan (the plan's costs are the sequential
+chain's), as in the JAX CLI, and it cannot be combined with ``--use_ddim``.
+``--dump_trajectory`` records the sequential chain, as in the JAX CLI. Every
+model the factory builds samples: ``--cond_type``, ``--use_3d_aware``;
+``--use_checkpoint`` does nothing without gradients.
 
 ``--view_dataset synbody`` or ``tightcap`` decodes the capture's novel views
 145 onward (``--data_root``; the SMPL-X models of ``--smplx_model_dir``, or
@@ -94,6 +99,7 @@ from humanliff_tpu_torch.sampling.layered import (
 )
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 from humanliff_tpu_torch.utils.video import write_png, write_video
 
 # The orbit views' box (the JAX CLI's default bounds).
@@ -130,6 +136,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample_npz", type=str, default=None,
                    help="previous layer's samples npz (x_cond)")
     p.add_argument("--use_ddim", type=_bool, default=False)
+    p.add_argument("--parallel_window", type=int, default=0,
+                   help="sliding-window Picard sampling: timesteps per batched UNet call "
+                        "(0 = the sequential chain; sampling/parallel.py)")
+    p.add_argument("--parallel_tol", type=float, default=5e-3,
+                   help="--parallel_window: mean-abs residual at or below which a "
+                        "guessed step is accepted (0 = the sequential result)")
     p.add_argument("--decode", action="store_true",
                    help="render novel views + mesh with the Stage-1 decoder")
     p.add_argument("--view_dataset", type=str, default="orbit",
@@ -297,9 +309,9 @@ def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device)
 
 def chain_batches(args) -> list:
     """The batch size of each ``--all_layers`` chain: ``plan_workload``'s plan
-    with ``--auto_plan`` (JAX diff_sample.py:366-375), else ``--batch_size``
-    for every chain."""
-    if args.auto_plan:
+    with ``--auto_plan`` and no ``--parallel_window`` (JAX
+    diff_sample.py:366-375), else ``--batch_size`` for every chain."""
+    if args.auto_plan and not args.parallel_window:
         plan = plan_workload(args.num_samples)
         print(f"[plan] mixed-batch plan for {args.num_samples}: {plan}")
         return plan
@@ -313,6 +325,7 @@ def _write_json(path: str, obj) -> None:
 
 
 def main(argv=None) -> None:
+    setup_runtime()
     args = build_parser().parse_args(argv)
     device = device_for(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -327,7 +340,9 @@ def main(argv=None) -> None:
         for B in chain_batches(args):
             layers = generate_all_layers(model, diffusion, generator=generator, batch_size=B,
                                          image_size=S, channels=C, device=device,
-                                         use_ddim=args.use_ddim)
+                                         use_ddim=args.use_ddim,
+                                         parallel_window=args.parallel_window,
+                                         parallel_tol=args.parallel_tol)
             for name, x in layers.items():
                 all_samples[name].append(x.cpu().numpy())
             done += B
@@ -375,7 +390,9 @@ def main(argv=None) -> None:
                                 pred_xstart=np.stack([p for _, p in traj]))
             print("wrote", tpath)
         else:
-            samples = generate_layer(model, diffusion, args.layer_idx, xc, **kw)
+            samples = generate_layer(model, diffusion, args.layer_idx, xc,
+                                     parallel_window=args.parallel_window,
+                                     parallel_tol=args.parallel_tol, **kw)
         outs.append(samples.cpu().numpy())
         done += args.batch_size
         print(f"sampled {done}/{args.num_samples}")

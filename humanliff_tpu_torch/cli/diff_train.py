@@ -6,9 +6,13 @@ reference scripts/image_train.py).
 
 ``--data_dir synthetic`` trains on random planes. A packed ``.npy``
 (``data/triplane_data.py::pack_subject_planes``) of at most 1 GB stays on the
-card (``--device_data auto``) and the step gathers its batch by index. Log
-keys, the save policy and the ``DIFFUSION_TRAINING_TEST`` early exit after the
-first periodic save (train_util.py:181-185) are the JAX CLI's.
+card (``--device_data auto``) and the step gathers its batch by index.
+``--data_name imagenet`` trains on an image folder (``--data_dir``; reference
+image_train.py:54-60) through ``data/image_folder.py::load_image_data``, with
+a zero x_cond, and labels from the file names with ``--class_cond true``
+(zeros otherwise); set ``--in_channels``/``--out_channels`` to the images'
+3. Log keys, the save policy and the ``DIFFUSION_TRAINING_TEST`` early exit
+after the first periodic save (train_util.py:181-185) are the JAX CLI's.
 
 Differences from the JAX CLI:
 
@@ -26,7 +30,7 @@ Differences from the JAX CLI:
   flax's; timesteps and noise come from a ``torch.Generator``.
 - Metrics stay on the card until the log interval; the JAX CLI's per-step
   readback (a wedge workaround for its remote TPU) is not ported.
-- Not ported: ``--data_name imagenet`` (ROADMAP A13), TensorBoard logging.
+- Not ported: TensorBoard logging.
 
 Every ``--cond_type`` trains (``controlnet``, ``concat``, ``AdaGN``,
 ``cross_attention``, ``""``), with or without ``--use_3d_aware``;
@@ -60,6 +64,7 @@ from humanliff_tpu_torch.train.stage2 import (
 )
 from humanliff_tpu_torch.utils import logger as loglib
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 METRIC_KEYS = ["loss", "grad_norm"] + [f"loss_q{q}" for q in range(4)]
 DEVICE_DATA_MAX_BYTES = 1 << 30
@@ -77,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_dir", type=str, default="synthetic")
     p.add_argument("--data_name", type=str, default="triplane",
                    help="'triplane': packed tri-planes (or 'synthetic' random planes); "
-                        "'imagenet' is not ported")
+                        "'imagenet': an image folder")
     p.add_argument("--logdir", type=str, default="./logs/diffusion")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--microbatch", type=int, default=0)
@@ -115,8 +120,21 @@ def _batches(args, device):
     """An iterator of batches on ``device``, and the loader to close (or None)."""
     S, C, B = args.image_size, args.in_channels, args.batch_size
     if args.data_name == "imagenet":
-        raise NotImplementedError("--data_name imagenet (image-folder training) is not "
-                                  "ported; see ROADMAP A13")
+        if not os.path.isdir(args.data_dir):
+            raise ValueError("--data_name imagenet needs --data_dir pointing at an image "
+                             f"folder (got {args.data_dir!r})")
+        from humanliff_tpu_torch.data.image_folder import load_image_data
+
+        images = load_image_data(args.data_dir, B, S, class_cond=args.class_cond,
+                                 seed=args.seed)
+
+        def image_batches():
+            for b in images:
+                x = torch.from_numpy(b["x"]).to(device)
+                y = torch.from_numpy(b.get("y", np.zeros((B,), np.int32))).long()
+                yield {"x": x, "x_cond": torch.zeros_like(x), "y": y.to(device)}
+
+        return image_batches(), None
     if args.data_name != "triplane":
         raise ValueError(f"unknown --data_name {args.data_name!r}")
     if args.data_dir == "synthetic":
@@ -174,6 +192,7 @@ def _resume(args, state) -> None:
 
 
 def main(argv=None):
+    setup_runtime()
     args = build_parser().parse_args(argv)
     device = device_for(args.device)
     os.makedirs(args.logdir, exist_ok=True)

@@ -19,7 +19,8 @@ weights are ``diff_sample``'s.
 
 Differences from the JAX CLI: the loop's noise comes from one seeded
 ``torch.Generator`` on the device, batch after batch, not from JAX key
-splits; ``main`` returns the per-image terms.
+splits; ``main`` returns the per-image terms; a nonzero ``--parallel_window``
+(parsed by the shared parser; the JAX CLI ignores it) is refused.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 from humanliff_tpu_torch.cli.diff_sample import _load_model, build_parser
 from humanliff_tpu_torch.sampling.layered import _model_fn
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def load_data(args) -> np.ndarray:
@@ -63,12 +65,15 @@ def model_fn_for(model):
 
 
 def main(argv=None) -> Dict[str, np.ndarray]:
+    setup_runtime()
     p = build_parser()
     p.add_argument("--data_npz", type=str, default=None,
                    help="npz of (N, H, W, C) images to evaluate; default random")
     p.add_argument("--data_dir", type=str, default=None,
                    help="image folder to evaluate (reference image_nll data_dir)")
     args = p.parse_args(argv)
+    if args.parallel_window:
+        p.error("--parallel_window: image_nll evaluates the sequential chain's terms")
     device = device_for(args.device)
     model, diffusion = _load_model(args, device, bf16=False)
     data = load_data(args)

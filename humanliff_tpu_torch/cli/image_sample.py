@@ -12,7 +12,9 @@ for class-conditional sampling. Flags and weights are ``diff_sample``'s
 (``--model_dir`` or ``--model_npz``, ``--device``, ``--use_ddim``, ...).
 
 Differences from the JAX CLI: labels and noise come from one seeded
-``torch.Generator`` on the device, not from JAX key splits.
+``torch.Generator`` on the device, not from JAX key splits; a nonzero
+``--parallel_window`` (parsed by the shared parser; the JAX CLI ignores it)
+is refused, since this sampler runs the sequential chain.
 """
 
 from __future__ import annotations
@@ -26,10 +28,15 @@ import torch
 from humanliff_tpu_torch.cli.diff_sample import _load_model, build_parser
 from humanliff_tpu_torch.sampling.layered import _model_fn
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def main(argv=None) -> str:
-    args = build_parser().parse_args(argv)
+    setup_runtime()
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.parallel_window:
+        parser.error("--parallel_window: image_sample runs the sequential chain")
     device = device_for(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     model, diffusion = _load_model(args, device)

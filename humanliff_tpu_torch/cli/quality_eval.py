@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels, device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def build_parser():
@@ -348,6 +349,7 @@ def _report(args, step, savedir, results):
 
 
 def main(argv=None):
+    setup_runtime()
     args = build_parser().parse_args(argv)
     if args.report_only:
         path = os.path.join(args.out_dir, "quality_metrics.json")

@@ -73,6 +73,7 @@ import torch
 from humanliff_tpu_torch.nerf.renderer import render_image_masked
 from humanliff_tpu_torch.sampling.layered import LAYER_NAMES
 from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 CAMPAIGN_COMMAND = "python -m humanliff_tpu_torch.cli.quality_stage2"
 
@@ -249,6 +250,7 @@ def _write_failure_report(work: str, stage: str, exc: BaseException) -> None:
 
 
 def main(argv=None):
+    setup_runtime()
     args = build_parser().parse_args(argv)
     work = args.work_dir or os.path.join(args.out_dir, "stage2")
     if args.report_only:

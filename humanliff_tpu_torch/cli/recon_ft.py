@@ -41,6 +41,7 @@ from humanliff_tpu_torch.train.stage1_ft import (
 )
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def build_parser():
@@ -65,6 +66,7 @@ def load_shared(expdir: str, device) -> dict:
 
 
 def main(argv=None):
+    setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
     device = device_for(args.device)
     expdir = os.path.join(args.basedir, args.expname)

@@ -68,6 +68,7 @@ from humanliff_tpu_torch.train.stage1 import (
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils import logger as loglib
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def _expand_plane_files(spec: str):
@@ -101,6 +102,7 @@ def build_parser():
 
 
 def main(argv=None):
+    setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
     device = device_for(args.device)
 

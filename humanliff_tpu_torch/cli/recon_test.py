@@ -38,6 +38,7 @@ from humanliff_tpu_torch.nerf.renderer import RenderConfig
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 DEFORM_KEYS = ("poses", "betas", "t_poses", "R", "Th", "smpl_verts")
@@ -59,6 +60,7 @@ def build_parser():
 
 
 def main(argv=None):
+    setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
     args.train_split = "test"
     device = device_for(args.device)

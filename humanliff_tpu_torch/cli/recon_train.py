@@ -52,6 +52,7 @@ from humanliff_tpu_torch.train.stage1 import (
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils import logger as loglib
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 AUX_KEYS = ("loss", "img_loss", "acc_loss", "tv", "psnr")
 
@@ -142,6 +143,7 @@ def build_parser():
 
 
 def main(argv=None):
+    setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
     cfglib.print_args(args)
     device = device_for(args.device)

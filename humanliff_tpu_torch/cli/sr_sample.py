@@ -29,9 +29,11 @@ from humanliff_tpu_torch.diffusion.respace import create_diffusion
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.stage2 import model_fn_for
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def main(argv=None) -> str:
+    setup_runtime()
     p = build_parser()
     p.add_argument("--model_dir", type=str, required=True)
     p.add_argument("--low_res_npz", type=str, default=None)

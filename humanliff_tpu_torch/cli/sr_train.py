@@ -49,6 +49,7 @@ from humanliff_tpu_torch.train.stage2 import (
 )
 from humanliff_tpu_torch.utils import logger as loglib
 from humanliff_tpu_torch.utils.config import device_for
+from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
 def _bool(s: str) -> bool:
@@ -120,6 +121,7 @@ def _pairs(args):
 
 
 def main(argv=None):
+    setup_runtime()
     args = build_parser().parse_args(argv)
     device = device_for(args.device)
     os.makedirs(args.logdir, exist_ok=True)

@@ -230,9 +230,10 @@ def load_unet_npz(
       ``np.savez(path, **{k: v.numpy() for k, v in model.state_dict().items()})``
       writes them.
 
-    Keys starting with ``__`` are metadata and dropped. This does not load the
-    original HumanLiff ``.pt`` checkpoints: those may order the attention qkv
-    rows head-major, which neither layout here does.
+    Keys starting with ``__`` are metadata and dropped. The reference's own
+    ``.pt`` checkpoints are read by ``compat/torch_import.py::
+    import_unet_checkpoint``, which also reorders their head-major attention
+    qkv rows; save its model's state dict as above to sample from it here.
     """
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files if not k.startswith("__")}

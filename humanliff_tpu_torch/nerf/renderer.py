@@ -6,10 +6,11 @@ depths, then the full decoder and alpha compositing. Parity quirks kept: the
 coarse up-sampler scales z widths by ``||d||`` while the fine-pass alpha uses
 raw widths, and depth is normalized by near/far (renderer.py:288).
 
-``render_image_masked`` renders only the rays whose AABB test passed. The rays
-are uploaded once and compacted, rendered chunk by chunk and scattered back on
-the device; the JAX package's host-side scatter was a workaround for a slow
-host link to the TPU.
+``render_image_chunked`` renders every ray of an image, chunk by chunk (the
+reference's test path). ``render_image_masked`` renders only the rays whose
+AABB test passed. The rays are uploaded once and compacted, rendered chunk by
+chunk and scattered back on the device; the JAX package's host-side scatter
+was a workaround for a slow host link to the TPU.
 
 Canonical space (TightCap): a ``deform_fn`` maps the sample points, and in
 the fine pass the view directions, into the planes' frame before the
@@ -235,3 +236,40 @@ def render_image_masked(
         for k in full:
             full[k][idx[sl]] = out[k]
     return full
+
+
+@torch.no_grad()
+def render_image_chunked(
+    decoder,
+    planes: torch.Tensor,
+    rays_o,
+    rays_d,
+    near,
+    far,
+    box_warp,
+    cfg: RenderConfig,
+    chunk: int = 4096,
+    deform_fn: Optional[Callable] = None,
+    deform_args=None,
+) -> Dict[str, torch.Tensor]:
+    """Full-image eval render of every ray: the rays (numpy arrays or tensors)
+    go to ``planes.device`` once, are padded with zero rays to a multiple of
+    ``chunk`` and rendered by :func:`render_rays` one chunk at a time (2
+    decoder calls a chunk); the padding is dropped. Deterministic: no jitter,
+    no density noise (the reference's test path, all_test.py:153, which
+    renders H*W/16 rays a chunk). Returns rgb (N, 3), acc (N,), depth (N,).
+    ``deform_fn`` and ``deform_args``: canonical space, as in
+    :func:`render_rays`."""
+    def dev(a):
+        return torch.as_tensor(a, dtype=torch.float32).to(planes.device)
+
+    rays = [dev(a) for a in (rays_o, rays_d, near, far)]
+    N = rays[0].shape[0]
+    pad = (-N) % chunk
+    rays = [torch.cat([r, r.new_zeros((pad, *r.shape[1:]))]) for r in rays]
+    box = dev(box_warp)
+    eval_cfg = dataclasses.replace(cfg, perturb=False, density_noise=False)
+    outs = [render_rays(decoder, planes, *(r[s:s + chunk] for r in rays), box, eval_cfg,
+                        deform_fn=deform_fn, deform_args=deform_args)
+            for s in range(0, N + pad, chunk)]
+    return {k: torch.cat([o[k] for o in outs])[:N] for k in outs[0]}

@@ -1,1 +1,1 @@
-"""Layer-wise progressive generation."""
+"""Layer-wise progressive generation, Picard sampling and tri-plane views."""

@@ -9,11 +9,13 @@ autocast and the diffusion arithmetic stays fp32.
 
 ``use_ddim`` samples by DDIM (eta 0) instead of the ancestral chain, over the
 diffusion's respaced steps (``timestep_respacing="ddim50"``).
+``parallel_window > 0`` samples the ancestral chain by sliding-window Picard
+iteration (``sampling/parallel.py``), opt-in as in JAX.
 ``generate_layer_progressive`` also records the denoising trajectory.
 ``plan_workload`` splits an N-sample workload into chains of the batch sizes
 of a cost table, and ``generate_workload`` runs them.
 
-Not ported yet: ``parallel_window`` (Picard sampling) and the sharded path.
+Not ported yet: the sharded path (one device).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion, StepNoise
+from humanliff_tpu_torch.sampling.parallel import parallel_p_sample_loop
 
 LAYER_NAMES: List[str] = [
     "person",
@@ -77,19 +80,34 @@ def generate_layer(
     step_noise: Optional[StepNoise] = None,
     device="cuda",
     use_ddim: bool = False,
+    parallel_window: int = 0,
+    parallel_tol: float = 5e-3,
 ) -> torch.Tensor:
     """Sample one layer: (B, H, W, C) in [-1, 1] by the DDPM ancestral chain,
-    or by DDIM with ``use_ddim``.
+    or by DDIM with ``use_ddim``. ``parallel_window > 0`` runs the ancestral
+    chain by Picard iteration (``parallel_p_sample_loop``) with that window
+    and ``parallel_tol``; it cannot be combined with ``use_ddim``.
 
     ``noise`` / ``step_noise`` inject x_T and the per-step noise (see
-    ``GaussianDiffusion.p_sample_loop``); otherwise they come from ``generator``.
+    ``GaussianDiffusion.p_sample_loop``); otherwise they come from
+    ``generator`` (Picard: a ``TimestepNoise`` seeded from it).
     """
+    if parallel_window and use_ddim:
+        raise ValueError("parallel_window implements the ancestral (DDPM) chain; "
+                         "it cannot be combined with use_ddim")
     device = torch.device(device)
     shape, x_cond, y = _layer_inputs(layer_idx, x_cond, batch_size, image_size, channels,
                                      device)
+    model_fn = _model_fn(model, device.type == "cuda")
+    if parallel_window:
+        samples, _ = parallel_p_sample_loop(
+            diffusion, model_fn, shape, generator, x_cond, y, window=parallel_window,
+            tol=parallel_tol, clip_denoised=clip_denoised, noise=noise,
+            step_noise=step_noise, device=device)
+        return samples
     loop = diffusion.ddim_sample_loop if use_ddim else diffusion.p_sample_loop
     return loop(
-        _model_fn(model, device.type == "cuda"), shape, generator=generator,
+        model_fn, shape, generator=generator,
         x_cond=x_cond, noise=noise, step_noise=step_noise,
         clip_denoised=clip_denoised, model_kwargs={"y": y}, device=device,
     )
@@ -148,11 +166,15 @@ def generate_all_layers(
     device="cuda",
     callback: Optional[Callable[[str, torch.Tensor], None]] = None,
     use_ddim: bool = False,
+    parallel_window: int = 0,
+    parallel_tol: float = 5e-3,
 ) -> Dict[str, torch.Tensor]:
     """The progressive chain; returns ``{layer_name: (B, H, W, C)}``.
 
     ``noises[k] = (x_T, step_noise)`` injects layer k's noise; otherwise it is
     drawn from ``generator``. ``callback(name, samples)`` runs after each layer.
+    ``parallel_window``, ``parallel_tol``: Picard sampling of each layer
+    (:func:`generate_layer`).
     """
     out: Dict[str, torch.Tensor] = {}
     x_cond = None
@@ -161,6 +183,7 @@ def generate_all_layers(
         samples = generate_layer(
             model, diffusion, k, x_cond, generator, batch_size, image_size, channels,
             noise=noise, step_noise=step_noise, device=device, use_ddim=use_ddim,
+            parallel_window=parallel_window, parallel_tol=parallel_tol,
         )
         name = LAYER_NAMES[k] if k < len(LAYER_NAMES) else f"layer_{k}"
         out[name] = samples

@@ -1,1 +1,1 @@
-"""Image and video writers."""
+"""Image and video writers, logging, configuration, runtime setup and timing."""

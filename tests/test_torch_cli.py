@@ -10,6 +10,10 @@ package.
   ``--report_fidelity``: the trajectory file, and ``fidelity_{layer}.json``
   equal to the JAX ``plane_fidelity`` mean (rtol 1e-6); too few previous
   samples raise.
+- ``--parallel_window`` / ``--parallel_tol`` (Picard): single layer and
+  ``--all_layers`` samples, a window with DDIM raises, a window means no
+  ``--auto_plan`` plan; ``image_sample`` and ``image_nll`` (which share the
+  parser) refuse a window.
 - ``--decode``, fast and exact tier: the CLI's own samples, decoded by the JAX
   package's ``render_image_fast`` / ``render_image_masked`` and
   ``extract_mesh`` (bf16 planes, fp32 decoder weights), give the CLI's PNGs
@@ -203,9 +207,47 @@ def test_cuda_is_the_default_and_is_not_replaced_by_the_cpu(model_npz, tmp_path,
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flag", [["--parallel_window", "4"], ["--parallel_tol", "5e-3"],
-                                  ["--all_layers", "--auto_plan", "true", "--parallel_window", "2"],
-                                  ["--model_dir", "x"], ["--stage1_ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--model_dir", "x"], ["--stage1_ckpt", "x"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
         diff_sample.build_parser().parse_args(["--model_npz", "m.npz", *flag])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--layer_idx", "1", "--parallel_window", "2", "--parallel_tol", "0"],
+    ["--all_layers", "--parallel_window", "4", "--parallel_tol", "5e-3"],
+])
+def test_parallel_window_samples(model_npz, tmp_path, flags):
+    """Picard sampling through the CLI (the window's arithmetic is held to JAX
+    and to the sequential chain in tests/test_torch_parallel_sampling.py)."""
+    out = str(tmp_path / "out")
+    diff_sample.main(["--model_npz", model_npz, "--out_dir", out, "--num_samples", "2",
+                      "--batch_size", "2", *flags, *FLAGS])
+    names = diff_sample.LAYER_NAMES if "--all_layers" in flags else ["person_pant"]
+    for name in names:
+        arr = _samples(out, name)
+        assert arr.shape == (2, 16, 16, 27) and np.isfinite(arr).all()
+        assert np.abs(arr).max() <= 1.0
+    with pytest.raises(ValueError, match="use_ddim"):
+        diff_sample.main(["--model_npz", model_npz, "--out_dir", out, "--num_samples", "1",
+                          "--use_ddim", "true", "--parallel_window", "2", *FLAGS])
+
+
+def test_a_window_means_no_auto_plan():
+    """As in the JAX CLI: the plan's costs are the sequential chain's, so a
+    window samples chains of --batch_size."""
+    base = ["--model_npz", "m.npz", "--all_layers", "--auto_plan", "true", "--num_samples", "9",
+            "--batch_size", "3"]
+    parse = diff_sample.build_parser().parse_args
+    assert diff_sample.chain_batches(parse(base)) == diff_sample.plan_workload(9) != [3, 3, 3]
+    assert diff_sample.chain_batches(parse(base + ["--parallel_window", "4"])) == [3, 3, 3]
+
+
+@pytest.mark.parametrize("cli", ["image_sample", "image_nll"])
+def test_samplers_sharing_the_parser_refuse_a_window(cli, tmp_path):
+    import importlib
+
+    main = importlib.import_module(f"humanliff_tpu_torch.cli.{cli}").main
+    with pytest.raises(SystemExit):
+        main(["--model_npz", str(tmp_path / "missing.npz"), "--parallel_window", "4",
+              "--out_dir", str(tmp_path), *FLAGS])

@@ -135,7 +135,7 @@ def test_packed_planes_on_and_off_the_device(tmp_path, device_data, capsys):
 
 
 def test_refusals(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A13"):
+    with pytest.raises(ValueError, match="image folder"):  # --data_dir is "synthetic"
         _train(tmp_path, "--data_name", "imagenet")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

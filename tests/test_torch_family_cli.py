@@ -164,7 +164,7 @@ def test_diff_train_use_checkpoint_gives_the_same_step(tmp_path):
 
 
 def _args(**kw):
-    base = dict(auto_plan=False, num_samples=9, batch_size=2)
+    base = dict(auto_plan=False, num_samples=9, batch_size=2, parallel_window=0)
     return argparse.Namespace(**{**base, **kw})
 
 

@@ -85,6 +85,14 @@ def test_family_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_reference_import_and_single_device_modules_are_checked():
+    files = set(_port_files())
+    for module in ("compat/torch_import.py", "sampling/parallel.py", "sampling/viz.py",
+                   "ops/grid_sample.py", "utils/profiling.py", "utils/runtime.py",
+                   "nerf/renderer.py", "cli/diff_sample.py", "cli/diff_train.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]
