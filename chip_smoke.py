@@ -137,6 +137,25 @@ Phases, each printed with its seconds and failed past its budget:
               the masked render inside the box (CHUNKED_ATOL), its launches
               2 x ceil(N / 16,384), a Timer section and triplane_to_rgb
               under timed                                                 240 s
+    dist      the multi-rank paths (humanliff_tpu_torch/parallel/), each
+              run a subprocess of python -m torch.distributed.run
+              --standalone with a timeout, its process group killed past
+              it: (a) NCCL at world size 1: diff_train (3 flagship steps,
+              B 8 / 2, bf16, ZeRO, the fitted campaign planes on the card)
+              and recon_train (3 steps at the SynBody width, its save left
+              out) against the same runs in one process, bit for bit; (b)
+              Gloo, 2 ranks sharing the card: diff_train with ZeRO (step-1
+              loss within DIST_LOSS_RTOL of one process, params after 3
+              steps by its rule, rank 0's checkpoint resumed in one process
+              bit for bit against what each rank held), recon_train (2
+              launches a step on each rank), one fixed Stage-1 step with the
+              table over the ranks against one process (near_zero_apart),
+              render_views_sharded of 4 orbit views at 512^2 against
+              render_image_masked (atol 2e-5), generate_all_layers(mesh=)
+              (B 2, DDIM 10) and the Picard window of 8 over the ranks (20
+              steps, tol 0) against one process (DIST_REL); seconds, peak
+              memory and launches by rank and check, the 2-rank ones
+              labelled as no scaling claim                                360 s
 
 Launch counts are set to 0 just before each path (the 4-layer generation and
 exact decode, each grid build, each fast view, the fitted exact view, the
@@ -147,7 +166,8 @@ its exact and fast renders apart, quality_stage2 with its fine-tune and its
 decode apart, bench_decode with its exact and fast renders apart, each path of
 the family phase, and each path of the rest phase: the imported decoder's
 exact view, diff_sample on the imported weights, the three Picard runs, image
-training and the chunked view) and read just after it. Stage-2 training, the
+training and the chunked view; each rank of the dist phase counts its own
+launches, check by check) and read just after it. Stage-2 training, the
 family phase's paths, Picard and image training render nothing and must
 launch the decoder kernel 0 times, a Stage-1 step, world or canonical,
 exactly twice (the coarse and the fine pass). The last three lines are a
@@ -191,7 +211,7 @@ CANONICAL_REFERENCE = os.path.join(REPO, "runs", "quality", "canonical_jax_refer
 BOUNDS = np.asarray([[-1.0, -1.2, -1.0], [1.0, 1.2, 1.0]], np.float32)  # bench.py:200
 BUDGET_S = {"build": 120, "kernel": 120, "generate": 420, "decode": 180, "mesh": 120,
             "cli": 360, "train": 300, "recon": 240, "canonical": 240, "quality": 300,
-            "family": 300, "rest": 240}
+            "family": 300, "rest": 240, "dist": 360}
 RENDER_CHUNK = 16384  # rays per render_rays call (render_image_masked's default)
 GRID_RESOLUTION = 128  # the CLI's --grid_resolution default
 GRID_CHUNK = 1 << 22  # lattice points per decoder call of build_density_grid
@@ -3561,6 +3581,588 @@ def phase_rest(device, model_kwargs=None, render_size: int = 512, picard_steps=P
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# the dist phase: the multi-rank paths, started by torchrun
+# --------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_VIEWS = (0, 10, 20, 30)  # orbit views of the sharded decode
+DIST_GEN_BATCH, DIST_GEN_RESPACING = 2, "ddim10"
+# Generation and Picard split over ranks against one process, bf16: the UNet
+# runs at another batch on each side (B 1 a rank against B 2; 4 window slots
+# against 8), so cuDNN may pick other kernels; the bar is the family phase's
+# bf16-against-fp32 bar, which Picard's tol-0 check uses too.
+DIST_REL = UNET_BF16_REL
+# A Stage-2 step at 2 ranks sums the 4 microbatches' gradients as (1 + 2) +
+# (3 + 4), one process as ((1 + 2) + 3) + 4: the step-1 loss within rtol 1e-5
+# (JAX's bar, tests/test_parallel.py); params after DIST_STEPS Adam steps
+# within 2 x lr x steps (a near-zero gradient that takes the other sign), and
+# at most 1e-4 of the elements beyond 1e-2 x lr x steps.
+DIST_LOSS_RTOL = 1e-5
+DIST_TIMEOUT_S = {"nccl": 200, "gloo": 330}
+DIST_LABEL = "2 ranks sharing one card, Gloo through host memory: no scaling claim"
+
+
+class DistConfig:
+    """The dist phase's widths, written to its directory for the ranks to
+    read: the defaults are the card's; a CPU rehearsal narrows them.
+    ``model_kwargs``: the UNet (diff_train flags; empty is the flagship);
+    ``recon_flags``: added to recon_train's; ``fixed``: the fixed Stage-1
+    step's instances, plane size, rays, samples a pass and image size. (A
+    plain class: tests load this script without registering it as a module,
+    where a dataclass of string annotations fails.)"""
+
+    def __init__(self, device: str = "cuda", model_kwargs=None, recon_flags=(),
+                 fixed=None, view_size: int = 512, picard_steps: int = 20):
+        self.device, self.view_size, self.picard_steps = device, view_size, picard_steps
+        self.model_kwargs = dict(model_kwargs or {})
+        self.recon_flags = list(recon_flags)
+        self.fixed = dict(fixed or {"n": 100, "D": 256, "rays": 2048, "samples": 128,
+                                    "image": 128})
+
+    @property
+    def shape(self):
+        S = self.model_kwargs.get("image_size", 256)
+        return S, self.model_kwargs.get("in_channels", 27)
+
+
+def bits_digest(t) -> int:
+    """An exact digest of a float32 tensor's bits: the sum of each element's
+    bits times a weight of its index, in wrapping int64 arithmetic on the
+    tensor's device (order-free, so the same on every run)."""
+    import torch
+
+    flat = t.detach().contiguous().view(-1).view(torch.int32)
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    step = 1 << 26
+    for s0 in range(0, flat.numel(), step):
+        part = flat[s0:s0 + step].to(torch.int64)
+        w = (torch.arange(s0, s0 + part.numel(), device=flat.device, dtype=torch.int64)
+             * 2654435761 + 97) % 2147483647
+        total += (part * w).sum()
+    return int(total)
+
+
+def _diff_train_argv(cfg: DistConfig, packed: str, logdir: str, *extra) -> list:
+    """phase_train's flagship run for DIST_STEPS steps (B 8 in microbatches of
+    2, bf16, the fitted campaign planes on the card), each step logged."""
+    return ["--data_dir", packed, "--batch_size", "8", "--microbatch", "2", "--log_interval",
+            "1", "--save_interval", "1000000", "--logdir", logdir, "--total_steps",
+            str(DIST_STEPS), "--device", cfg.device, *_flags(cfg.model_kwargs), *extra]
+
+
+def _recon_argv(cfg: DistConfig, basedir: str, *extra) -> list:
+    """phase_recon's flagship recon_train for DIST_STEPS steps (SynBody config:
+    100 instances, D 256, 2 x 2,048 rays, 128 + 128 samples), each step logged."""
+    return ["--config", SYNBODY_CONFIG, "--data_set_type", "synthetic",
+            "--synthetic_image_size", "128", "--synthetic_tight_bounds", "true",
+            "--basedir", basedir, "--expname", "run", "--n_iteration", str(DIST_STEPS),
+            "--i_print", "1", "--i_weights", "1000000", "--device", cfg.device,
+            *cfg.recon_flags, *extra]
+
+
+def _logged(logdir: str, key: str = "loss") -> list:
+    with open(os.path.join(logdir, "progress.json")) as f:
+        return [json.loads(line)[key] for line in f]
+
+
+def _recon_unsaved(argv):
+    """recon_train.main(argv) without its final save (an 8.5 GB gather and
+    write at this width; the CPU tests hold the gathered checkpoint)."""
+    from humanliff_tpu_torch.cli import recon_train
+
+    real = recon_train.save
+    recon_train.save = lambda *a, **k: None
+    try:
+        return recon_train.main(argv)
+    finally:
+        recon_train.save = real
+
+
+def _fixed_insts(n: int):
+    """The fixed step's two instances: one of the table's second half (owned
+    by rank 1 of 2) in the first row (rank 0's), one of its first half."""
+    return n // 2 + n // 5, n // 30
+
+
+def _recon_fixed_step(cfg: DistConfig, device, mesh=None):
+    """One deterministic Stage-1 step at the SynBody width (100 instances, D
+    256, 2 x 2,048 rays, 128 + 128 samples, image 128) on a fixed batch of
+    the two _fixed_insts; with ``mesh`` the table shards by instance.
+    Returns (state, aux)."""
+    from humanliff_tpu_torch.data.synthetic import SyntheticLayeredDataset
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.parallel.mesh import shard_batch, shard_stage1_params
+    from humanliff_tpu_torch.train.optim import make_stage1_optimizer
+    from humanliff_tpu_torch.train.stage1 import (
+        Stage1Config,
+        create_train_state,
+        init_params,
+        train_step,
+    )
+
+    f = cfg.fixed
+    scfg = Stage1Config(num_instances=f["n"], triplane_dim=f["D"],
+                        render=RenderConfig(n_samples=f["samples"], n_importance=f["samples"],
+                                            perturb=False, density_noise=False))
+    ds = SyntheticLayeredDataset(num_instances=f["n"], n_rays=f["rays"], image_size=f["image"],
+                                 tight_bounds=True)
+    a, b = _fixed_insts(f["n"])
+    items = [(a * 256 + 1 * 64 + 5, 1), (b * 256 + 2 * 64 + 40, 2)]  # layers 1 and 2
+    params = init_params(scfg, 0, device)
+    if mesh is not None:
+        params = shard_stage1_params(params, mesh)
+    state = create_train_state(params, make_stage1_optimizer())
+    batch = stage1_batch(ds, items, device)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    aux = train_step(state, batch, scfg, mesh=mesh)
+    return state, {k: float(v) for k, v in aux.items()}
+
+
+def _dist_views(S: int):
+    from humanliff_tpu_torch.data.raygen import full_image_rays
+    from humanliff_tpu_torch.data.view_datasets import NovelViewCameras
+
+    cams = NovelViewCameras(S)
+    views = []
+    for v in DIST_VIEWS:
+        K, R, T = cams.camera(v)
+        ro, rd, near, far, mask = full_image_rays(S, S, K, R, T, BOUNDS)
+        views.append({"rays_o": ro, "rays_d": rd, "near": near, "far": far,
+                      "ray_mask": mask, "box_warp": BOUNDS})
+    return views
+
+
+def _dist_decode_planes(device):
+    import torch
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    return load_fitted_decoder(device), load_fitted_planes(3).to(device=device, dtype=dtype)
+
+
+def _dist_unet(cfg: DistConfig, device, respacing: str):
+    """The UNet with seeded weights in diff_sample's layout (on the card: bf16,
+    channels_last) and its respaced diffusion."""
+    import torch
+
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+
+    with torch.device(device):
+        model, diffusion = create_model_and_diffusion(
+            **{**cfg.model_kwargs, "timestep_respacing": respacing})
+    seed_weights(model, 0)
+    model.eval()
+    if device.type == "cuda":
+        model.to(dtype=torch.bfloat16, memory_format=torch.channels_last)
+    return model, diffusion
+
+
+def _dist_generate(cfg: DistConfig, device, mesh=None):
+    import torch
+
+    from humanliff_tpu_torch.sampling.layered import generate_all_layers
+
+    model, diffusion = _dist_unet(cfg, device, DIST_GEN_RESPACING)
+    S, C = cfg.shape
+    return generate_all_layers(model, diffusion, torch.Generator(device=device).manual_seed(21),
+                               batch_size=DIST_GEN_BATCH, image_size=S, channels=C,
+                               device=device, use_ddim=True, mesh=mesh)
+
+
+def _dist_picard(cfg: DistConfig, device, mesh=None):
+    """Layer 0 at B 1 by a Picard window of PICARD_WINDOW at tol 0, its slots
+    split over ``mesh``; phase_rest's seeds of x_T and the per-timestep noise."""
+    import torch
+
+    from humanliff_tpu_torch.sampling.layered import _model_fn
+    from humanliff_tpu_torch.sampling.parallel import TimestepNoise, parallel_p_sample_loop
+
+    model, diffusion = _dist_unet(cfg, device, str(cfg.picard_steps))
+    S, C = cfg.shape
+    shape = (1, S, S, C)
+    x_T = torch.randn(shape, generator=torch.Generator(device=device).manual_seed(11),
+                      device=device)
+    return parallel_p_sample_loop(
+        diffusion, _model_fn(model, device.type == "cuda"), shape,
+        x_cond=torch.zeros(shape, device=device),
+        y=torch.zeros(1, dtype=torch.int64, device=device), window=PICARD_WINDOW, tol=0.0,
+        noise=x_T, step_noise=TimestepNoise(12, shape, diffusion.num_timesteps, device),
+        device=device, mesh=mesh)
+
+
+def _tiles(counts, size: int) -> int:
+    """render_views_sharded's tiles of a rank: views of ``counts`` masked rays."""
+    chunk = min(RENDER_CHUNK, max(counts))
+    return -(-sum(-(-n // chunk) for n in counts) // size)
+
+
+def dist_worker(kind: str, tmp: str) -> int:
+    """One rank of the dist phase, under torchrun: ``nccl`` (world size 1) runs
+    diff_train and recon_train; ``gloo`` (2 ranks sharing the card) runs
+    those, a fixed sharded Stage-1 step, render_views_sharded, sharded
+    generation and the sharded Picard window. Prints one DIST_RESULT JSON
+    line with each check's results, seconds, launches and peak memory;
+    arrays for the references go to files under ``tmp``, whose config.json
+    gives the widths (DistConfig)."""
+    import torch
+    import torch.distributed as dist
+
+    import humanliff_tpu_torch.ops.fused_decoder  # noqa: F401  (registers the launch count)
+    from humanliff_tpu_torch import kernels
+    from humanliff_tpu_torch.cli import diff_train
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig
+    from humanliff_tpu_torch.nerf.sharded import render_views_sharded
+    from humanliff_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+    with open(os.path.join(tmp, "config.json")) as f:
+        cfg = DistConfig(**json.load(f))
+    backend = "gloo" if kind == "gloo" or cfg.device == "cpu" else "nccl"
+    device = initialize_multihost(cfg.device, backend)
+    cuda = device.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device=device)
+    rank = mesh.rank
+    res = {"kind": kind, "rank": rank, "world": mesh.size, "backend": dist.get_backend(),
+           "device": str(device), "checks": {}}
+    packed = os.path.join(tmp, "planes.npy")
+
+    def run(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn() or {}
+        if cuda:
+            torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0,
+                   launches=kernels.LAUNCHES.get("fused_decoder", 0),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else None)
+        res["checks"][name] = out
+
+    def train():
+        logdir = os.path.join(tmp, f"diff_{kind}")
+        extra = ["--zero_shard", "true", "--dist_backend", backend]
+        if kind == "nccl":
+            extra += ["--skip_final_save", "true"]
+        state = diff_train.main(_diff_train_argv(cfg, packed, logdir, *extra))
+        out = {"losses": None}
+        if rank == 0:  # rank 0 logs; a logged step's s is its log interval's
+            out.update(losses=_logged(logdir), s_per_step=[
+                1.0 / v for v in _logged(logdir, "steps_per_sec")])
+        if kind == "gloo":  # what each rank holds, to hold the checkpoint to
+            part = state.part
+            out["range"] = [part.start, part.stop]
+            out["digests"] = {"params": bits_digest(state.params),
+                              "mu": bits_digest(state.opt_state["mu"]),
+                              "nu": bits_digest(state.opt_state["nu"]),
+                              **{f"ema {r}": bits_digest(e) for r, e in state.ema_params.items()}}
+        del state
+        return out
+
+    def recon():
+        basedir = os.path.join(tmp, f"recon_{kind}")
+        _recon_unsaved(_recon_argv(cfg, basedir, "--dist_backend", backend))
+        if rank:
+            return {"losses": None}
+        run_dir = os.path.join(basedir, "run")
+        return {"losses": _logged(run_dir), "s_per_step": _logged(run_dir, "time_per_iter")}
+
+    def fixed():
+        state, aux = _recon_fixed_step(cfg, device, mesh)
+        n = state.params["planes"].shape[0]
+        own = {f"planes_{i}": state.params["planes"][i - rank * n].cpu().numpy()
+               for i in _fixed_insts(cfg.fixed["n"]) if rank * n <= i < (rank + 1) * n}
+        np.savez(os.path.join(tmp, f"fixed_rank{rank}.npz"),
+                 decoder=state.params["decoder"].cpu().numpy(), **own)
+        return {"aux": aux, "shard": int(n)}
+
+    def decode():
+        views = _dist_views(cfg.view_size)
+        dec, planes = _dist_decode_planes(device)
+        rcfg = RenderConfig(n_samples=128, n_importance=128, perturb=False, density_noise=False)
+        outs = render_views_sharded(dec, planes, views, rcfg, mesh, chunk=RENDER_CHUNK,
+                                    outputs=("rgb", "acc"))
+        np.savez(os.path.join(tmp, f"decode_rank{rank}.npz"),
+                 **{f"{k}_{v}": o[k].cpu().numpy() for v, o in enumerate(outs)
+                    for k in ("rgb", "acc")})
+        counts = [int(np.asarray(it["ray_mask"]).sum()) for it in views]
+        return {"rays": counts, "tiles_per_rank": _tiles(counts, mesh.size)}
+
+    def generate():
+        out = _dist_generate(cfg, device, mesh)
+        if rank == 0:
+            np.savez(os.path.join(tmp, "generate.npz"),
+                     **{k: v.float().cpu().numpy() for k, v in out.items()})
+
+    def picard():
+        out, calls = _dist_picard(cfg, device, mesh)
+        if rank == 0:
+            np.save(os.path.join(tmp, "picard.npy"), out.float().cpu().numpy())
+        return {"model_calls": calls}
+
+    run("diff_train", train)
+    run("recon_train", recon)
+    if kind == "gloo":
+        run("recon fixed step", fixed)
+        run("render_views_sharded", decode)
+        run("generate_all_layers", generate)
+        run("picard", picard)
+    say("DIST_RESULT " + json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _torchrun(n: int, kind: str, tmp: str) -> list:
+    """``python -m torch.distributed.run --standalone`` of ``n`` dist_worker
+    ranks; their DIST_RESULT records in rank order. A rank that fails, or a
+    run past DIST_TIMEOUT_S, fails the phase (its process group killed)."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(n), os.path.abspath(__file__), "--dist_worker", kind, "--dist_dir", tmp]
+    say(f"[dist] {' '.join(cmd[1:])}")
+    with open(os.path.join(tmp, f"torchrun_{kind}.log"), "w+") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=DIST_TIMEOUT_S[kind])
+        except subprocess.TimeoutExpired:
+            say(f"[dist] torchrun {kind} still running after {DIST_TIMEOUT_S[kind]} s: killed")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        log.seek(0)
+        lines = log.read().splitlines()
+    results = sorted((json.loads(ln.split("DIST_RESULT ", 1)[1]) for ln in lines
+                      if "DIST_RESULT " in ln), key=lambda r: r["rank"])
+    if proc.returncode != 0 or len(results) != n:
+        say("\n".join(f"[dist {kind}] {ln}" for ln in lines[-80:]))
+    check(proc.returncode == 0, f"torchrun {kind} exited with {proc.returncode}")
+    check(len(results) == n, f"torchrun {kind}: {len(results)} of {n} ranks reported")
+    return results
+
+
+def _compare_params(got, want, lr: float, steps: int, label: str) -> dict:
+    """DIST_LOSS_RTOL's params rule (above) on two flat buffers."""
+    import torch
+
+    d = (got.double() - want.double()).abs()
+    worst = float(d.max())
+    check(worst <= 2 * lr * steps + 1e-7, f"{label}: {worst} apart, over 2 x lr x steps")
+    off = int((d > 1e-2 * lr * steps).sum())
+    check(off <= 1e-4 * d.numel(), f"{label}: {off} of {d.numel()} elements apart")
+    return {"max_over_lr": worst / lr, "apart": off, "of": d.numel(),
+            "rel_l2": float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(want.double()))}
+
+
+def _dist_tag(r) -> str:
+    return "nccl" if r["kind"] == "nccl" else f"gloo rank {r['rank']}"
+
+
+def phase_dist(device, cfg: DistConfig = None) -> dict:
+    """The dist phase's checks (module docstring): the two torchrun runs, then
+    the one-process references in this process. ``cfg`` narrows the widths
+    for a CPU rehearsal (its device must be ``device``'s)."""
+    import torch
+
+    from humanliff_tpu_torch.cli import diff_train
+    from humanliff_tpu_torch.data.triplane_data import pack_subject_planes
+    from humanliff_tpu_torch.models.factory import create_model_and_diffusion
+    from humanliff_tpu_torch.nerf.renderer import RenderConfig, render_image_masked
+    from humanliff_tpu_torch.train import checkpoint as ckpt
+    from humanliff_tpu_torch.train.stage2 import Stage2Config, create_stage2_state, restore_into
+
+    cfg = cfg or DistConfig()
+    cuda = device.type == "cuda"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    rec, paths = {}, {}
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    try:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump(vars(cfg), f)
+        packed = os.path.join(tmp, "planes.npy")
+        if cfg.model_kwargs:  # a narrower UNet: the fitted planes, resized
+            src = os.path.join(tmp, "subject_000000.npz")
+            S, C = cfg.shape
+            with np.load(PLANES_NPZ) as z:
+                full = torch.from_numpy(z["tri_planes"]).reshape(4, C, 256, 256)
+            small = torch.nn.functional.interpolate(full, size=(S, S), mode="area")
+            ckpt.save_subject_planes(src, small.reshape(4, 3, C // 3, S, S).numpy(), 0)
+            pack_subject_planes([src], packed)
+        else:
+            pack_subject_planes([PLANES_NPZ], packed)
+        free()
+        t0 = time.perf_counter()
+        (a,) = _torchrun(1, "nccl", tmp)
+        rec["nccl_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = _torchrun(2, "gloo", tmp)
+        rec["gloo_s"] = time.perf_counter() - t0
+        rec["nccl"], rec["gloo"] = a, b
+        for r in [a] + b:
+            tag = _dist_tag(r)
+            for name, c in r["checks"].items():
+                paths[f"dist {tag} {name}"] = c["launches"]
+                peak = "not measured" if c["peak_gb"] is None else f"{c['peak_gb']:.3f} GB"
+                say(f"[dist] {tag} ({r['backend']}, {r['device']}) {name}: {c['seconds']:.3f} s, "
+                    f"peak {peak}, {c['launches']} fused_decoder launches"
+                    + (f" ({DIST_LABEL})" if r["kind"] == "gloo" else ""))
+        if cuda:  # a Stage-1 step launches the kernel twice on each rank, a decode tile twice
+            for r in [a] + b:
+                tag, c = _dist_tag(r), r["checks"]
+                check(c["diff_train"]["launches"] == 0, f"{tag}: diff_train launched the kernel")
+                check(c["recon_train"]["launches"] == 2 * DIST_STEPS,
+                      f"{tag}: recon_train launched {c['recon_train']['launches']}")
+                if r["kind"] == "gloo":
+                    check(c["recon fixed step"]["launches"] == 2, f"{tag}: fixed step launches")
+                    d = c["render_views_sharded"]
+                    check(d["launches"] == 2 * d["tiles_per_rank"],
+                          f"{tag}: {d['launches']} decode launches, {d['tiles_per_rank']} tiles")
+                    check(c["generate_all_layers"]["launches"] == 0
+                          and c["picard"]["launches"] == 0, f"{tag}: sampling launched")
+
+        # Stage 2 in one process: the same steps, no save.
+        free()
+        logdir = os.path.join(tmp, "diff_one")
+        state = diff_train.main(_diff_train_argv(cfg, packed, logdir, "--skip_final_save",
+                                                 "true"))
+        one = _logged(logdir)
+        one_params = state.params.clone()
+        del state
+        got = a["checks"]["diff_train"]["losses"]
+        say(f"[dist] (a) diff_train losses, NCCL world size 1 / one process: {got} / {one}")
+        check(got == one, "(a) diff_train at NCCL world size 1 is not bit for bit")
+        gloo = b[0]["checks"]["diff_train"]["losses"]
+        rel1 = abs(gloo[0] - one[0]) / abs(one[0])
+        say(f"[dist] (b) diff_train losses, 2 Gloo ranks with ZeRO / one process: {gloo} / "
+            f"{one}; step 1 relative {rel1:.3e} (bar {DIST_LOSS_RTOL})")
+        check(rel1 <= DIST_LOSS_RTOL, f"(b) diff_train step-1 loss {rel1:.3e} apart")
+        rec["diff_train"] = {"one": one, "nccl": got, "gloo": gloo, "step1_rel": rel1}
+
+        # Rank 0's checkpoint resumed in one process, against what the ranks
+        # held; then its params against the one-process run's.
+        restored, step = ckpt.restore_state(os.path.join(tmp, "diff_gloo"))
+        check(step == DIST_STEPS, f"(b) rank 0's checkpoint is at step {step}")
+        with torch.device(device):
+            model, diffusion = create_model_and_diffusion(**cfg.model_kwargs)
+        fresh = create_stage2_state(model, Stage2Config(), diffusion.num_timesteps)
+        check(restore_into(fresh, restored), "(b) the checkpoint is not a full one")
+        del restored
+        for r in b:
+            lo, hi = r["checks"]["diff_train"]["range"]
+            want = r["checks"]["diff_train"]["digests"]
+            have = {"params": bits_digest(fresh.params),
+                    "mu": bits_digest(fresh.opt_state["mu"][lo:hi]),
+                    "nu": bits_digest(fresh.opt_state["nu"][lo:hi]),
+                    **{f"ema {k}": bits_digest(e[lo:hi]) for k, e in fresh.ema_params.items()}}
+            check(have == want, f"(b) rank {r['rank']}'s state in [{lo}, {hi}) does not resume "
+                                f"bit for bit: {have} vs {want}")
+        ranges = [r["checks"]["diff_train"]["range"] for r in b]
+        say(f"[dist] (b) rank 0's ZeRO checkpoint resumes in one process bit for bit: params, "
+            f"and mu, nu and the EMA in each rank's range {ranges}")
+        rec["params"] = _compare_params(fresh.params, one_params, 5e-5, DIST_STEPS,
+                                        "(b) params")
+        say(f"[dist] (b) params after {DIST_STEPS} steps, 2 ranks / one process: "
+            f"{json.dumps(rec['params'])}")
+        del fresh, model, one_params
+        free()
+
+        # Stage 1 in one process: the CLI (a) and the fixed step (b).
+        basedir = os.path.join(tmp, "recon_one")
+        _recon_unsaved(_recon_argv(cfg, basedir))
+        one = _logged(os.path.join(basedir, "run"))
+        got = a["checks"]["recon_train"]["losses"]
+        say(f"[dist] (a) recon_train losses, NCCL world size 1 / one process: {got} / {one}")
+        check(got == one, "(a) recon_train at NCCL world size 1 is not bit for bit")
+        say(f"[dist] (b) recon_train losses on 2 ranks, each with its own loader: "
+            f"{b[0]['checks']['recon_train']['losses']}")
+        free()
+        state, aux = _recon_fixed_step(cfg, device)
+        got = b[0]["checks"]["recon fixed step"]
+        n = cfg.fixed["n"]
+        check(all(r["checks"]["recon fixed step"]["shard"] == n // 2 for r in b),
+              f"(b) each rank must hold {n // 2} of the {n} instances")
+        fixed = {}
+        for k, v in aux.items():
+            rel = abs(got["aux"][k] - v) / max(abs(v), 1e-30)
+            check(rel <= DIST_LOSS_RTOL, f"(b) fixed step {k}: {got['aux'][k]} vs {v}")
+            fixed[f"{k}_rel"] = rel
+        files = [dict(np.load(os.path.join(tmp, f"fixed_rank{r}.npz"))) for r in range(2)]
+        opt = state.opt_state
+        fixed["decoder"] = near_zero_apart(torch.from_numpy(files[0]["decoder"]),
+                                           state.params["decoder"], opt["decoder"]["mu"] / 0.1,
+                                           5e-3, "(b) fixed step decoder")
+        for i in _fixed_insts(n):
+            plane = next(f[f"planes_{i}"] for f in files if f"planes_{i}" in f)
+            fixed[f"planes_{i}"] = near_zero_apart(
+                torch.from_numpy(plane), state.params["planes"][i],
+                opt["planes"]["mu"][i] / 0.1, 1e-1, f"(b) fixed step planes {i}")
+        rec["recon_fixed"] = fixed
+        say(f"[dist] (b) one Stage-1 step at the SynBody width, the table over 2 ranks / one "
+            f"process: {json.dumps(fixed)}")
+        del state, opt
+        free()
+
+        # The sharded decode against render_image_masked, view by view.
+        dec, planes = _dist_decode_planes(device)
+        rcfg = RenderConfig(n_samples=128, n_importance=128, perturb=False, density_noise=False)
+        files = [dict(np.load(os.path.join(tmp, f"decode_rank{r}.npz"))) for r in range(2)]
+        worst = 0.0
+        for v, it in enumerate(_dist_views(cfg.view_size)):
+            ref = render_image_masked(dec, planes, it["rays_o"], it["rays_d"], it["near"],
+                                      it["far"], it["ray_mask"], BOUNDS, rcfg,
+                                      outputs=("rgb", "acc"))
+            for f in files:
+                for k in ("rgb", "acc"):
+                    worst = max(worst, float(np.abs(f[f"{k}_{v}"] - ref[k].cpu().numpy()).max()))
+        say(f"[dist] (b) render_views_sharded of {len(DIST_VIEWS)} orbit views at "
+            f"{cfg.view_size}^2 over 2 ranks / render_image_masked: max abs {worst:.3e} "
+            "(bar 2e-5)")
+        check(worst <= 2e-5, f"(b) the sharded decode is {worst:.3e} from the exact views")
+        rec["decode_max_abs"] = worst
+        free()
+
+        # Generation and Picard against one process.
+        ref = _dist_generate(cfg, device)
+        got = np.load(os.path.join(tmp, "generate.npz"))
+        rels = {}
+        for k, v in ref.items():
+            v = v.float().cpu().numpy()
+            check(got[k].shape == v.shape and np.isfinite(got[k]).all(), f"(b) generate {k}")
+            rels[k] = float(np.linalg.norm(got[k] - v) / np.linalg.norm(v))
+        say(f"[dist] (b) generate_all_layers(mesh=) B {DIST_GEN_BATCH}, {DIST_GEN_RESPACING}, "
+            f"2 ranks / one process, relative L2 by layer: {json.dumps(rels)} (bar {DIST_REL})")
+        check(max(rels.values()) <= DIST_REL, f"(b) the sharded generation is apart: {rels}")
+        rec["generate_rel"] = rels
+        del ref
+        free()
+        ref, calls = _dist_picard(cfg, device)
+        got = np.load(os.path.join(tmp, "picard.npy"))
+        ref = ref.float().cpu().numpy()
+        rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+        calls_b = [r["checks"]["picard"]["model_calls"] for r in b]
+        say(f"[dist] (b) Picard window {PICARD_WINDOW} over 2 ranks, {cfg.picard_steps} steps, "
+            f"tol 0 / the one-process window: relative L2 {rel:.3e} (bar {DIST_REL}), model "
+            f"calls {calls_b} / {calls}")
+        check(rel <= DIST_REL and calls_b == [calls, calls] and calls == cfg.picard_steps,
+              f"(b) the sharded Picard window is apart: {rel}, calls {calls_b} vs {calls}")
+        rec["picard_rel"] = rel
+        rec["paths"] = paths
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def nvidia_smi_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3575,7 +4177,12 @@ def main(argv=None) -> int:
                     help="respaced DDPM steps per layer (of 1000)")
     ap.add_argument("--cli_steps", default="ddim50",
                     help="the CLI phase's --timestep_respacing")
+    ap.add_argument("--dist_worker", choices=("nccl", "gloo"), default=None,
+                    help=argparse.SUPPRESS)  # one rank of the dist phase, under torchrun
+    ap.add_argument("--dist_dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_worker:  # its device is the dist phase's (DistConfig)
+        return dist_worker(args.dist_worker, args.dist_dir)
 
     import torch
 
@@ -3711,6 +4318,21 @@ def main(argv=None) -> int:
         f"{pic['tol 0']['rel']:.3e}); imagenet diff_train "
         f"{rest['image_train']['s_per_step']:.4f} s/step; chunked view "
         f"{rest['chunked']['s']:.3f} s")
+
+    with Phase("dist", cuda_sync):
+        dist = phase_dist(device)
+        paths.update(dist["paths"])
+    ranks = [dist["nccl"]] + dist["gloo"]
+    steps = {f"{_dist_tag(r)} {k}": [round(x, 4) for x in r["checks"][k]["s_per_step"]]
+             for r in ranks if r["rank"] == 0 for k in ("diff_train", "recon_train")}
+    summary.append(
+        f"dist: torchrun NCCL world size 1 {dist['nccl_s']:.3f} s, Gloo 2 ranks "
+        f"{dist['gloo_s']:.3f} s ({DIST_LABEL}); s by check "
+        + json.dumps({_dist_tag(r): {k: round(c["seconds"], 3) for k, c in r["checks"].items()}
+                      for r in ranks})
+        + "; peak GB " + json.dumps({_dist_tag(r): round(max(
+            c["peak_gb"] for c in r["checks"].values()), 3) for r in ranks})
+        + f"; s a step {json.dumps(steps)}")
 
     say(f"summary: {'; '.join(summary)}; total {time.perf_counter() - t_start:.3f} s")
     say(f"[kernel] main-path shapes: {json.dumps(kern['main_shapes'])}; backward of a Stage-1 "

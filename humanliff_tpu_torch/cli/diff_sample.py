@@ -34,8 +34,17 @@ Differences from the JAX CLI:
   fused kernel takes fp32 weights); the JAX CLI casts the weights to bf16 too.
 - ``--image_scaling`` scales the intrinsics of ``--cameras_json`` cameras;
   the JAX CLI passes it only to the capture datasets.
-- One device only: ``--parallel_window`` runs the Picard window on it (the
-  JAX CLI shards the window across several devices where it has them).
+- Several GPUs: one process per GPU under ``torchrun`` (``python -m
+  torch.distributed.run --nproc_per_node N -m
+  humanliff_tpu_torch.cli.diff_sample ...``), where JAX runs one process over
+  all devices. ``--parallel_window`` splits each window's slots over the
+  ranks (the window must divide over them); without a window rank 0
+  generates and broadcasts the layers, so every rank decodes the same
+  planes. ``--decode`` of views that share a box goes through
+  ``nerf/sharded.py::render_views_sharded`` (the exact tier, as in JAX, even
+  with ``--fast_render``), its tiles split over the ranks; other views, the
+  mesh and every file are rank 0's. ``--dist_backend gloo`` lets ranks share
+  a card.
 
 ``--all_layers --auto_plan true`` splits ``--num_samples`` into the chain
 batches of ``sampling/layered.py::plan_workload`` (its table of measured
@@ -89,6 +98,9 @@ from humanliff_tpu_torch.nerf.decoder import NeRFDecoder
 from humanliff_tpu_torch.nerf.fastpath import build_density_grid, render_image_fast
 from humanliff_tpu_torch.nerf.geometry import extract_mesh
 from humanliff_tpu_torch.nerf.renderer import RenderConfig, render_image_masked
+from humanliff_tpu_torch.nerf.sharded import render_views_sharded
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root
 from humanliff_tpu_torch.sampling.layered import (
     LAYER_NAMES,
     generate_all_layers,
@@ -98,7 +110,6 @@ from humanliff_tpu_torch.sampling.layered import (
     planes_image_to_triplane,
 )
 from humanliff_tpu_torch.train import checkpoint as ckpt
-from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 from humanliff_tpu_torch.utils.video import write_png, write_video
 
@@ -125,6 +136,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--decoder_npz", type=str, default=None,
                    help="Stage-1 decoder weights (decoder_*.npz); needed by --decode")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend (default nccl on "
+                        "cuda, gloo on the cpu); gloo lets ranks share a card")
     p.add_argument("--out_dir", type=str, default="./samples")
     p.add_argument("--num_samples", type=int, default=25)
     p.add_argument("--batch_size", type=int, default=1)
@@ -254,17 +268,26 @@ def _view_items(args, layer_idx: int):
     return [ds.item(i) for i in range(min(args.num_views, len(ds)))], deform_fn
 
 
-def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device) -> None:
+def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device,
+                    mesh=None) -> None:
     """Render each sample's views to PNGs and a video, and export its mesh in
     the first view's box (triplane_sample_layered.py:155-207). Views that
     share the box and need no deform go through one render call; canonical
-    views render one by one, each with its own deform arguments."""
+    views render one by one, each with its own deform arguments. With
+    ``mesh``, views that share the box render with their tiles split over
+    the ranks (canonical ones too); else rank 0 renders alone. Rank 0
+    writes."""
     items, deform_fn = _view_items(args, LAYER_NAMES.index(layer_name))
     shapes = [(int(it["hw"][0]), int(it["hw"][1])) for it in items]
     box = np.asarray(items[0]["box_warp"], np.float32)
-    one_call = deform_fn is None and all(
-        np.array_equal(np.asarray(it["box_warp"], np.float32), box) for it in items)
-    groups = ([{k: np.concatenate([it[k] for it in items])
+    same_box = all(np.array_equal(np.asarray(it["box_warp"], np.float32), box)
+                   for it in items)
+    sharded = mesh is not None and same_box
+    if mesh is not None and not sharded and not is_root(mesh):
+        return
+    one_call = deform_fn is None and same_box
+    groups = ([] if sharded else
+              [{k: np.concatenate([it[k] for it in items])
                 for k in ("rays_o", "rays_d", "near", "far", "ray_mask")}] if one_call
               else items)
     dtype = torch.bfloat16 if args.render_bf16 else torch.float32
@@ -275,8 +298,15 @@ def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device)
             torch.from_numpy(np.asarray(sample)).to(device=device, dtype=dtype)).contiguous()
         t0 = time.perf_counter()
         grid = (build_density_grid(decoder, planes, box, resolution=args.grid_resolution)
-                if args.fast_render else None)
+                if args.fast_render and not sharded else None)
         rgb = []
+        if sharded:
+            outs = render_views_sharded(
+                decoder, planes, items, cfg, mesh, deform_fn=deform_fn,
+                deform_args_fn=None if deform_fn is None else deform_args)
+            rgb = [(o["rgb"].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy() for o in outs]
+            if not is_root(mesh):
+                continue
         for g in groups:
             render_args = (g["rays_o"], g["rays_d"], g["near"], g["far"], g["ray_mask"],
                            np.asarray(g.get("box_warp", box), np.float32), cfg)
@@ -301,8 +331,9 @@ def _decode_samples(args, decoder, samples: np.ndarray, layer_name: str, device)
         verts, tris = extract_mesh(decoder, planes, box, resolution=args.mesh_resolution)
         mesh_s = time.perf_counter() - t0
         write_ply(os.path.join(args.out_dir, f"{layer_name}_s{si}.ply"), verts, tris)
+        tier = "fast" if grid is not None else "exact"
         print(f"decoded sample {si}: {len(frames)} views in {render_s:.3f} s "
-              f"({'fast' if args.fast_render else 'exact'} tier), mesh "
+              f"({tier} tier{', sharded' if sharded else ''}), mesh "
               f"{len(verts)} verts / {len(tris)} tris at {args.mesh_resolution}^3 "
               f"in {mesh_s:.3f} s")
 
@@ -324,10 +355,25 @@ def _write_json(path: str, obj) -> None:
     print("wrote", path)
 
 
+def _on_every_rank(mesh, parallel_mesh, make, shapes: dict) -> dict:
+    """``make()``'s dict of float32 tensors on every rank: each rank's own
+    where a Picard window splits over the ranks (all compute alike), else
+    rank 0's, broadcast into buffers of ``shapes``."""
+    if mesh is None or parallel_mesh is not None:
+        return make()
+    out = ({k: v.contiguous() for k, v in make().items()} if is_root(mesh)
+           else {k: torch.empty(s, device=mesh.device) for k, s in shapes.items()})
+    for v in out.values():
+        coll.broadcast_(v, 0, mesh)
+    return out
+
+
 def main(argv=None) -> None:
     setup_runtime()
     args = build_parser().parse_args(argv)
-    device = device_for(args.device)
+    device, mesh = cli_mesh(args.device, args.dist_backend)
+    root = is_root(mesh)
+    parallel_mesh = mesh if args.parallel_window else None
     os.makedirs(args.out_dir, exist_ok=True)
     model, diffusion = _load_model(args, device)
     decoder = _load_decoder(args, device) if args.decode else None
@@ -338,11 +384,14 @@ def main(argv=None) -> None:
         all_samples = {name: [] for name in LAYER_NAMES}
         done = 0
         for B in chain_batches(args):
-            layers = generate_all_layers(model, diffusion, generator=generator, batch_size=B,
-                                         image_size=S, channels=C, device=device,
-                                         use_ddim=args.use_ddim,
-                                         parallel_window=args.parallel_window,
-                                         parallel_tol=args.parallel_tol)
+            layers = _on_every_rank(
+                mesh, parallel_mesh,
+                lambda B=B: generate_all_layers(
+                    model, diffusion, generator=generator, batch_size=B, image_size=S,
+                    channels=C, device=device, use_ddim=args.use_ddim,
+                    parallel_window=args.parallel_window, parallel_tol=args.parallel_tol,
+                    parallel_mesh=parallel_mesh),
+                {name: (B, S, S, C) for name in LAYER_NAMES})
             for name, x in layers.items():
                 all_samples[name].append(x.cpu().numpy())
             done += B
@@ -350,12 +399,13 @@ def main(argv=None) -> None:
         stacked = {name: np.concatenate(chunks)[: args.num_samples]
                    for name, chunks in all_samples.items()}
         for name, arr in stacked.items():
-            path = os.path.join(args.out_dir, f"samples_{name}.npz")
-            ckpt.save_samples_npz(path, arr)
-            print("wrote", path)
+            if root:
+                path = os.path.join(args.out_dir, f"samples_{name}.npz")
+                ckpt.save_samples_npz(path, arr)
+                print("wrote", path)
             if args.decode:
-                _decode_samples(args, decoder, arr, name, device)
-        if args.report_fidelity:
+                _decode_samples(args, decoder, arr, name, device, mesh)
+        if args.report_fidelity and root:
             report = chain_fidelity_report(stacked, args.fidelity_threshold)
             for pair, m in report.items():
                 print(f"[fidelity] {pair}: {m}")
@@ -382,30 +432,40 @@ def main(argv=None) -> None:
             xc = torch.from_numpy(xc).to(device)
         kw = dict(generator=generator, batch_size=args.batch_size, image_size=S, channels=C,
                   use_ddim=args.use_ddim, device=device)
+        shape = (args.batch_size, S, S, C)
         if args.dump_trajectory:
-            samples, traj = generate_layer_progressive(
-                model, diffusion, args.layer_idx, xc, record_every=args.dump_trajectory, **kw)
-            tpath = os.path.join(args.out_dir, f"trajectory_{name}_b{done}.npz")
-            np.savez_compressed(tpath, t=np.asarray([t for t, _ in traj], np.int32),
-                                pred_xstart=np.stack([p for _, p in traj]))
-            print("wrote", tpath)
+            def progressive(xc=xc, done=done):
+                samples, traj = generate_layer_progressive(
+                    model, diffusion, args.layer_idx, xc, record_every=args.dump_trajectory,
+                    **kw)
+                tpath = os.path.join(args.out_dir, f"trajectory_{name}_b{done}.npz")
+                np.savez_compressed(tpath, t=np.asarray([t for t, _ in traj], np.int32),
+                                    pred_xstart=np.stack([p for _, p in traj]))
+                print("wrote", tpath)
+                return {"x": samples}
+
+            samples = _on_every_rank(mesh, None, progressive, {"x": shape})["x"]
         else:
-            samples = generate_layer(model, diffusion, args.layer_idx, xc,
-                                     parallel_window=args.parallel_window,
-                                     parallel_tol=args.parallel_tol, **kw)
+            samples = _on_every_rank(
+                mesh, parallel_mesh,
+                lambda xc=xc: {"x": generate_layer(
+                    model, diffusion, args.layer_idx, xc, parallel_window=args.parallel_window,
+                    parallel_tol=args.parallel_tol, parallel_mesh=parallel_mesh, **kw)},
+                {"x": shape})["x"]
         outs.append(samples.cpu().numpy())
         done += args.batch_size
         print(f"sampled {done}/{args.num_samples}")
     arr = np.concatenate(outs)[: args.num_samples]
-    path = os.path.join(args.out_dir, f"samples_{name}.npz")
-    ckpt.save_samples_npz(path, arr)
-    print("wrote", path)
-    if args.report_fidelity and prev is not None:
+    if root:
+        path = os.path.join(args.out_dir, f"samples_{name}.npz")
+        ckpt.save_samples_npz(path, arr)
+        print("wrote", path)
+    if args.report_fidelity and prev is not None and root:
         report = batch_fidelity(arr, prev[: arr.shape[0]], args.fidelity_threshold)
         print(f"[fidelity] prev->{name}: {report}")
         _write_json(os.path.join(args.out_dir, f"fidelity_{name}.json"), report)
     if args.decode:
-        _decode_samples(args, decoder, arr, name, device)
+        _decode_samples(args, decoder, arr, name, device, mesh)
 
 
 if __name__ == "__main__":

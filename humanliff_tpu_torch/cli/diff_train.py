@@ -17,8 +17,26 @@ after the first periodic save (train_util.py:181-185) are the JAX CLI's.
 Differences from the JAX CLI:
 
 - ``--device`` (default ``cuda``) raises when CUDA is missing; ``cpu`` runs
-  on the CPU. One device: ``--zero_shard`` is accepted and, as in JAX on one
-  device, does nothing.
+  on the CPU.
+- Several GPUs: one process per GPU under ``torchrun``
+  (``python -m torch.distributed.run --nproc_per_node N -m
+  humanliff_tpu_torch.cli.diff_train ...``), where JAX runs one process over
+  all devices. ``--batch_size`` is the global batch: the mesh is capped to
+  its largest divisor at most N, and a rank outside the capped mesh prints
+  so and leaves. ``--zero_shard true`` (the default) splits Adam's moments
+  and the EMAs by offset range of the flat parameter buffer over the ranks
+  (ZeRO-1; JAX splits each leaf on its largest divisible axis),
+  ``false`` replicates them (DDP); on one process it does nothing.
+  ``--dist_backend gloo`` lets ranks share a card (NCCL needs one each).
+  Rank 0 alone writes logs and checkpoints, in the one-process format.
+- Data on several ranks (:func:`_batches`): a host source (a packed ``.npy``
+  over 1 GB, ``--data_name imagenet``) is read by a loader of each rank,
+  seeded by (seed, rank) and drawing B/W items, the reference's per-rank
+  loaders, where JAX shards one loader's global batch; so the batches depend
+  on the world size. The device-resident table (``--device_data``) is whole
+  on every rank, where JAX shards it by example, and every rank draws the
+  global batch's indices from one seed and takes its rows, as do the
+  synthetic planes: these batches are the one-process ones.
 - Checkpoints are the port's (``train/checkpoint.py``), not orbax.
   ``--resume_npz`` continues a JAX run from its full state, exported by
   ``scripts/export_jax_weights.py --full_state``, when ``--logdir`` holds no
@@ -54,6 +72,8 @@ from humanliff_tpu_torch.models.factory import (
     create_model_and_diffusion,
     model_and_diffusion_defaults,
 )
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.stage2 import (
     Stage2Config,
@@ -63,7 +83,6 @@ from humanliff_tpu_torch.train.stage2 import (
     train_step,
 )
 from humanliff_tpu_torch.utils import logger as loglib
-from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 METRIC_KEYS = ["loss", "grad_norm"] + [f"loss_q{q}" for q in range(4)]
@@ -95,7 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--schedule_sampler", type=str, default="uniform")
     p.add_argument("--use_amp", type=_bool, default=True, help="bf16 autocast")
     p.add_argument("--zero_shard", type=_bool, default=True,
-                   help="ZeRO-1 over the data mesh; does nothing on one device")
+                   help="under torchrun: split Adam's moments and the EMAs over the ranks "
+                        "(ZeRO-1); false replicates them (DDP). One process: does nothing")
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend (default nccl on "
+                        "cuda, gloo on the cpu); gloo lets ranks share a card")
     p.add_argument("--device_data", type=str, default="auto", choices=("auto", "true", "false"),
                    help="keep the packed dataset on the device and gather batches by "
                         "index (auto: datasets up to 1 GB)")
@@ -116,22 +139,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _batches(args, device):
-    """An iterator of batches on ``device``, and the loader to close (or None)."""
+def _batches(args, device, mesh=None):
+    """An iterator of batches on ``device``, and the loader to close (or None).
+    With ``mesh``, two divergences from JAX, whose one loader's global batch
+    is sharded: a host source (packed ``.npy`` off the device, image folder)
+    gives each rank B/W items of a loader of its own seeded by (seed, rank),
+    the reference's per-rank loaders; the device-resident table is whole on
+    every rank (JAX shards it by example), each rank drawing the global
+    batch's indices from the one seed and taking its rows. Synthetic planes
+    are drawn globally and sliced too."""
     S, C, B = args.image_size, args.in_channels, args.batch_size
+    rows = slice(None) if mesh is None else mesh.rows(B)
+    B_local = B if mesh is None else mesh.share(B)
+    rank_seed = args.seed + (0 if mesh is None else 1000 * mesh.rank)
     if args.data_name == "imagenet":
         if not os.path.isdir(args.data_dir):
             raise ValueError("--data_name imagenet needs --data_dir pointing at an image "
                              f"folder (got {args.data_dir!r})")
         from humanliff_tpu_torch.data.image_folder import load_image_data
 
-        images = load_image_data(args.data_dir, B, S, class_cond=args.class_cond,
-                                 seed=args.seed)
+        images = load_image_data(args.data_dir, B_local, S, class_cond=args.class_cond,
+                                 seed=rank_seed)
 
         def image_batches():
             for b in images:
                 x = torch.from_numpy(b["x"]).to(device)
-                y = torch.from_numpy(b.get("y", np.zeros((B,), np.int32))).long()
+                y = torch.from_numpy(b.get("y", np.zeros((B_local,), np.int32))).long()
                 yield {"x": x, "x_cond": torch.zeros_like(x), "y": y.to(device)}
 
         return image_batches(), None
@@ -142,9 +175,9 @@ def _batches(args, device):
 
         def synthetic():
             while True:
-                x = torch.from_numpy(rng.normal(scale=0.4, size=(B, S, S, C)).astype(np.float32))
-                y = torch.from_numpy(rng.integers(0, 4, size=(B,)))
-                x = x.to(device)
+                x = rng.normal(scale=0.4, size=(B, S, S, C)).astype(np.float32)[rows]
+                y = torch.from_numpy(rng.integers(0, 4, size=(B,))[rows])
+                x = torch.from_numpy(x).to(device)
                 yield {"x": x, "x_cond": torch.zeros_like(x), "y": y.to(device)}
 
         return synthetic(), None
@@ -165,10 +198,10 @@ def _batches(args, device):
             return {"idx": np.int64(index), "y": np.int64(index % L)}
 
         loader = BatchLoader(len(ds), item_idx, B, seed=args.seed)
-        batches = ({"planes": planes, **{k: torch.from_numpy(v).to(device)
+        batches = ({"planes": planes, **{k: torch.from_numpy(v[rows]).to(device)
                                          for k, v in b.items()}} for b in loader)
     else:
-        loader = BatchLoader(len(ds), ds.item, B, seed=args.seed)
+        loader = BatchLoader(len(ds), ds.item, B_local, seed=rank_seed)
         batches = ({k: torch.from_numpy(v).to(device).long() if k == "y"
                     else torch.from_numpy(v).to(device) for k, v in b.items()}
                    for b in loader)
@@ -191,12 +224,36 @@ def _resume(args, state) -> None:
         print(f"resumed the JAX state of {args.resume_npz} at step {state.step}")
 
 
+def _save(args, step: int, state, light: bool, mesh) -> None:
+    """Checkpoint ``state``: every rank gathers, rank 0 writes, all wait."""
+    payload = state_payload(state, light, mesh)
+    if payload is not None:
+        path = ckpt.save_state(args.logdir, step, payload)
+        print("saved (light: params+EMA only)" if light else "saved", path)
+    del payload
+    coll.barrier(mesh)
+
+
+def _mesh_size(batch_size: int):
+    """The mesh size for a world of N ranks: the largest divisor of the batch
+    at most N (JAX diff_train.py:158-173)."""
+    return lambda world: max(d for d in range(1, min(world, batch_size) + 1)
+                             if batch_size % d == 0)
+
+
 def main(argv=None):
+    """Train; returns the state (None on a rank outside a capped mesh)."""
     setup_runtime()
     args = build_parser().parse_args(argv)
-    device = device_for(args.device)
+    device, mesh = cli_mesh(
+        args.device, args.dist_backend, _mesh_size(args.batch_size),
+        capped=f"batch_size {args.batch_size} does not divide across the ranks (raise "
+               "--batch_size to a multiple of the device count to use every chip)")
+    if mesh is not None and not mesh.member:
+        return None
+    root = is_root(mesh)
     os.makedirs(args.logdir, exist_ok=True)
-    log = loglib.configure(args.logdir, ["stdout", "csv", "json"])
+    log = loglib.configure(args.logdir, ["stdout", "csv", "json"] if root else [])
 
     torch.manual_seed(args.seed)
     with torch.device(device):
@@ -210,10 +267,11 @@ def main(argv=None):
         use_bf16=args.use_amp, schedule_sampler=args.schedule_sampler,
         class_cond=args.class_cond,
     )
-    state = create_stage2_state(model, cfg, diffusion.num_timesteps)
+    state = create_stage2_state(model, cfg, diffusion.num_timesteps, mesh,
+                                zero=args.zero_shard)
     _resume(args, state)
 
-    batches, loader = _batches(args, device)
+    batches, loader = _batches(args, device, mesh)
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     step = state.step
     t0 = time.time()
@@ -221,7 +279,7 @@ def main(argv=None):
     try:
         while step < args.total_steps:
             m_buf.append(train_step(state, model, diffusion, cfg, next(batches),
-                                    generator=generator))
+                                    generator=generator, mesh=mesh))
             step += 1
             if step % args.log_interval == 0:
                 stacked = torch.stack([torch.stack([m[k] for k in METRIC_KEYS])
@@ -236,8 +294,7 @@ def main(argv=None):
             # A save on the final step is left to the final-save policy below.
             if (step % args.save_interval == 0 or step == 20000) and step != args.total_steps:
                 light = args.mid_save == "light"
-                path = ckpt.save_state(args.logdir, step, state_payload(state, light))
-                print("saved (light: params+EMA only)" if light else "saved", path)
+                _save(args, step, state, light, mesh)
                 if os.environ.get("DIFFUSION_TRAINING_TEST"):
                     print("DIFFUSION_TRAINING_TEST set: early exit after first save")
                     return state
@@ -246,11 +303,8 @@ def main(argv=None):
             loader.close()
     if args.skip_final_save:
         print("skip_final_save: no final checkpoint written (final state returned in-memory)")
-    elif args.light_final_save:
-        print("saved (light: params+EMA only)",
-              ckpt.save_state(args.logdir, step, state_payload(state, light=True)))
     else:
-        print("saved", ckpt.save_state(args.logdir, step, state_payload(state)))
+        _save(args, step, state, args.light_final_save, mesh)
     return state
 
 

@@ -30,7 +30,12 @@ Differences from the JAX CLI:
   state comes across through ``scripts/export_jax_weights.py --stage1``, or
   ``recon_refit`` rebuilds one from plane exports and a decoder sidecar).
 - ``--device`` (default ``cuda``, which raises where CUDA is missing; ``cpu``
-  on request); one device.
+  on request).
+- Several GPUs: under ``torchrun`` the training leg is ``recon_train`` on
+  all the ranks (the table sharded by instance; ``--dist_backend`` is handed
+  on), and rank 0 alone evaluates and writes the report; the other ranks
+  leave after training. The JAX CLI evaluates on its one process too.
+  ``--report_only`` is one process's.
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ import sys
 import numpy as np
 import torch
 
-from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels, device_for
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root
+from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
@@ -83,6 +89,9 @@ def build_parser():
                    help="checkpoint cadence: any saved step can be evaluated "
                         "with --skip_train if the campaign is cut short")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend (default nccl on "
+                        "cuda, gloo on the cpu); gloo lets ranks share a card")
     return p
 
 
@@ -108,6 +117,7 @@ def _train(args):
         "--i_print", str(args.i_print),
         "--i_weights", str(args.i_weights),
         "--device", args.device,
+        *(["--dist_backend", args.dist_backend] if args.dist_backend else []),
     ])
 
 
@@ -358,10 +368,12 @@ def main(argv=None):
         step = int(rec["step"])
         _report(args, step, os.path.join(args.out_dir, f"eval_{step:06d}"), rec["results"])
         return rec["results"]
-    device = device_for(args.device)
+    device, mesh = cli_mesh(args.device, args.dist_backend)
     os.makedirs(args.out_dir, exist_ok=True)
     if not args.skip_train:
         _train(args)
+    if not is_root(mesh):  # rank 0 evaluates and reports
+        return None
     step, savedir, results = _evaluate(args, device)
     _report(args, step, savedir, results)
     return results

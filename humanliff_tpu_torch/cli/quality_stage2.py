@@ -44,8 +44,15 @@ Differences from the JAX CLI:
   files, and its orbax checkpoints are not read here anyway (a JAX Stage-1
   state comes across through ``scripts/export_jax_weights.py --stage1``, or
   ``recon_refit`` rebuilds one from plane exports and a decoder sidecar).
-- One device, no mesh: ``--diff_batch_size`` need not divide a device count.
-  The diffusion leg trains without activation checkpointing. The JAX
+- Several GPUs: under ``torchrun`` the fine-tune leg is ``recon_ft`` over all
+  the ranks (the rank count must divide ``--ft_subjects``) and the diffusion
+  leg ``diff_train`` (its mesh capped to the largest divisor of
+  ``--diff_batch_size``, JAX's rule); rank 0 alone exports, packs, samples,
+  scores and writes the report, and the other ranks leave after training.
+  Rank 0 scores the final diffusion checkpoint (under ZeRO no rank holds the
+  whole EMA), so ``--final_save none`` is refused there.
+  ``--report_only`` is one process's. The diffusion leg trains without
+  activation checkpointing. The JAX
   campaign passes ``--use_checkpoint true`` because the flagship at batch 2
   does not fit a 16 GB TPU without it; on an 80 GB H100 it peaks at about
   21 GB without, and checkpointing would double the step's time for nothing
@@ -66,11 +73,14 @@ import json
 import os
 import re
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
 
 from humanliff_tpu_torch.nerf.renderer import render_image_masked
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root
 from humanliff_tpu_torch.sampling.layered import LAYER_NAMES
 from humanliff_tpu_torch.utils.config import DECODER_CHANNELS, decoder_channels
 from humanliff_tpu_torch.utils.runtime import setup_runtime
@@ -132,6 +142,9 @@ def build_parser():
                    help="rebuild STAGE2.md from an existing stage2_metrics.json "
                         "(no training, sampling or scoring)")
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend (default nccl on "
+                        "cuda, gloo on the cpu); gloo lets ranks share a card")
     return p
 
 
@@ -258,23 +271,32 @@ def main(argv=None):
             _write_success_report(work, json.load(f))
         return None
     status = {"stage": "setup"}
+    mesh = None
     try:
-        return _run(args, work, status)
+        device, mesh = cli_mesh(args.device, args.dist_backend)
+        return _run(args, work, status, device, mesh)
     except BaseException as exc:
-        _write_failure_report(work, status["stage"], exc)
+        if is_root(mesh):
+            _write_failure_report(work, status["stage"], exc)
         raise
 
 
-def _run(args, work: str, status: dict) -> dict:
-    from humanliff_tpu_torch.utils.config import device_for
-
-    device = device_for(args.device)
+def _run(args, work: str, status: dict, device, mesh) -> Optional[dict]:
+    """The legs; under a mesh the training legs run on every rank and the
+    rest on rank 0 (module docstring). Returns the metrics (None on the
+    other ranks)."""
+    root = is_root(mesh)
+    dist_flags = ["--dist_backend", args.dist_backend] if args.dist_backend else []
     planes_dir = os.path.join(work, "planes")
     os.makedirs(planes_dir, exist_ok=True)
 
     # ---- 1. Export the campaign subjects --------------------------------
     status["stage"] = "stage-1 plane export"
-    campaign_paths, exports_changed = _export_campaign_planes(args, planes_dir)
+    exports_changed = False
+    if root:
+        _, exports_changed = _export_campaign_planes(args, planes_dir)
+    coll.barrier(mesh)
+    campaign_paths = sorted(glob.glob(os.path.join(planes_dir, "campaign*.npz")))
 
     # ---- 2. Fine-tune extra subjects against the frozen decoder ---------
     status["stage"] = "frozen-decoder fine-tune"
@@ -303,7 +325,9 @@ def _run(args, work: str, status: dict) -> dict:
             "--out_dir", planes_dir,
             "--seed", str(args.seed),
             "--device", args.device,
+            *dist_flags,
         ])
+        coll.barrier(mesh)
         ft_paths = sorted(glob.glob(os.path.join(planes_dir, "subject*.npz")))
 
     all_paths = campaign_paths + ft_paths
@@ -329,10 +353,11 @@ def _run(args, work: str, status: dict) -> dict:
                 print(f"[stage2] repacking {os.path.basename(p)} "
                       "(campaign exports were regenerated)")
                 os.remove(p)
-    if not os.path.exists(packed_train):
+    if root and not os.path.exists(packed_train):
         pack_subject_planes(train_paths, packed_train)
-    if not os.path.exists(packed_held):
+    if root and not os.path.exists(packed_held):
         pack_subject_planes([heldout_path], packed_held)
+    coll.barrier(mesh)
 
     diff_dir = os.path.join(work, "train")
     have_step = ckpt.latest_step(diff_dir) or 0
@@ -341,6 +366,9 @@ def _run(args, work: str, status: dict) -> dict:
               f"on OLDER stage-1 exports; delete {diff_dir} to retrain against the "
               "regenerated planes")
     final_save = args.final_save or ("light" if args.light_final_save == "true" else "full")
+    if mesh is not None and final_save == "none":
+        raise ValueError("--final_save none under torchrun: rank 0 scores the final "
+                         "checkpoint, since no rank holds the whole ZeRO-split EMA")
     state_mem = None
     if have_step < args.diff_steps:
         state_mem = diff_train.main([
@@ -363,7 +391,12 @@ def _run(args, work: str, status: dict) -> dict:
             "--skip_final_save", "true" if final_save == "none" else "false",
             "--seed", str(args.seed),
             "--device", args.device,
+            *dist_flags,
         ])
+    if not root:  # rank 0 samples, scores and reports
+        return None
+    if mesh is not None:  # this rank's ranges of the EMA: score the checkpoint
+        state_mem = None
 
     # ---- 4. Resolve the scoring/sampling weights ------------------------
     # The in-memory final state when the training leg just ran (no save and

@@ -12,10 +12,15 @@ each subject in ``[start_idx, end_idx)`` and each of its 4 layers, writing
 the files ``data/triplane_data.py::pack_subject_planes`` packs for Stage 2.
 ``--subjects_per_batch K`` fits K subjects at once in one table.
 
+Several GPUs: under ``torchrun`` the K-subject table shards by instance over
+the N ranks (N must divide ``--subjects_per_batch``): each rank fits and
+writes K/N of each group's subjects, drawing their items from a generator
+seeded by (seed, rank) (the JAX CLI shards the table over its devices with
+one item stream; the reference splits subjects over GPUs).
+
 Differences from the JAX CLI: ``--device`` (default ``cuda``; ``cpu`` on
 request); items are drawn from one numpy generator seeded ``--seed`` (the JAX
-CLI seeds one per batch from its key); the K-subject table is not sharded
-over devices (ROADMAP A12).
+CLI seeds one per batch from its key).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from humanliff_tpu_torch.cli.recon_train import (
     stage1_config,
     to_device,
 )
+from humanliff_tpu_torch.parallel.mesh import cli_mesh
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.stage1_ft import (
     FinetuneConfig,
@@ -40,7 +46,6 @@ from humanliff_tpu_torch.train.stage1_ft import (
     finetune_subjects_batched,
 )
 from humanliff_tpu_torch.utils import config as cfglib
-from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
@@ -68,7 +73,11 @@ def load_shared(expdir: str, device) -> dict:
 def main(argv=None):
     setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
-    device = device_for(args.device)
+    device, mesh = cli_mesh(args.device, args.dist_backend)
+    group = max(1, args.subjects_per_batch)
+    if mesh is not None and group % mesh.size:
+        raise ValueError(f"--subjects_per_batch {group} does not divide over the "
+                         f"{mesh.size} ranks: each rank fits an equal share of a group")
     expdir = os.path.join(args.basedir, args.expname)
     shared = load_shared(expdir, device)
 
@@ -76,8 +85,9 @@ def main(argv=None):
     body_model = canonical_body_model(args, body_model)
     # As in the JAX CLI, the fine-tune renders in fp32 whatever --use_bf16 says.
     cfg = dataclasses.replace(stage1_config(args), use_bf16=False)
-    rng = np.random.default_rng(args.seed)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    seed = args.seed + (0 if mesh is None else 1000 * mesh.rank)
+    rng = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
     per_layer = getattr(dataset, "poses_num", 1) * getattr(dataset, "views_num", 64)
 
     def subject_batch(subj: int, layer: int):
@@ -92,7 +102,6 @@ def main(argv=None):
 
     ft_cfg = FinetuneConfig(steps_per_layer=args.ft_steps)
     subjects = list(range(args.start_idx, min(args.end_idx, args.num_instance)))
-    group = max(1, args.subjects_per_batch)
     for g0 in range(0, len(subjects), group):
         chunk = subjects[g0:g0 + group]
         if group == 1:
@@ -103,7 +112,7 @@ def main(argv=None):
             finetune_subjects_batched(
                 shared, lambda pos, layer, c=chunk: subject_batch(c[pos], layer), cfg, ft_cfg,
                 args.out_dir, [f"subject{s:04d}" for s in chunk], generator,
-                body_model=body_model)
+                body_model=body_model, mesh=mesh)
         print(f"finished subjects {chunk}")
 
 

@@ -29,9 +29,13 @@ pair:
   their ``_{step:06d}.npz`` names), since the step names plane provenance,
   and gets a decoder sidecar and a ``{step:06d}_REFIT.txt`` record.
 
+Several GPUs: under ``torchrun`` the table shards by instance over a mesh of
+``gcd(gcd(world, instances), --batch_size)`` ranks, as the JAX CLI sizes its
+mesh (recon_refit.py:168-174); a rank outside it leaves. Each rank reads its
+items from a loader seeded by (seed, rank) (``recon_train``); rank 0 writes.
+
 Differences from the JAX CLI: ``--device`` (default ``cuda``, which raises
-where CUDA is missing; ``cpu`` on request); one device, no mesh (the JAX
-CLI sizes a mesh to the instance count: ROADMAP A12); ``--decoder_from``
+where CUDA is missing; ``cpu`` on request); ``--decoder_from``
 reads the port's checkpoints (a JAX orbax state comes across through
 ``scripts/export_jax_weights.py --stage1``).
 """
@@ -39,6 +43,7 @@ reads the port's checkpoints (a JAX orbax state comes across through
 from __future__ import annotations
 
 import glob
+import math
 import os
 import re
 import sys
@@ -51,12 +56,14 @@ from humanliff_tpu_torch.cli.recon_train import (
     AUX_KEYS,
     build_dataset,
     canonical_body_model,
+    rank_loader,
     save,
     to_device,
 )
 from humanliff_tpu_torch.compat.from_jax import decoder_state_dict
 from humanliff_tpu_torch.nerf.decoder import flatten_state_dict
 from humanliff_tpu_torch.nerf.renderer import RenderConfig
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root, shard_stage1_params
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.optim import make_stage1_optimizer
 from humanliff_tpu_torch.train.stage1 import (
@@ -67,7 +74,6 @@ from humanliff_tpu_torch.train.stage1 import (
 )
 from humanliff_tpu_torch.utils import config as cfglib
 from humanliff_tpu_torch.utils import logger as loglib
-from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 
 
@@ -102,9 +108,9 @@ def build_parser():
 
 
 def main(argv=None):
+    """Refit and save; returns the state (None on a rank outside the mesh)."""
     setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
-    device = device_for(args.device)
 
     plane_files = _expand_plane_files(args.plane_files)
     if not plane_files:
@@ -131,9 +137,16 @@ def main(argv=None):
         raise ValueError(f"plane exports {planes.shape[1:]} do not match --triplane_dim "
                          f"{args.triplane_dim} --triplane_ch {args.triplane_ch}")
 
+    device, mesh = cli_mesh(
+        args.device, args.dist_backend,
+        lambda world: max(1, math.gcd(math.gcd(world, n_inst), args.batch_size)),
+        capped=f"the table of {n_inst} instances and --batch_size {args.batch_size} "
+               "must divide over the ranks")
+    if mesh is not None and not mesh.member:
+        return None
     expdir = os.path.join(args.basedir, args.expname)
     os.makedirs(expdir, exist_ok=True)
-    log = loglib.configure(expdir, ["stdout", "csv", "json"])
+    log = loglib.configure(expdir, ["stdout", "csv", "json"] if is_root(mesh) else [])
     dataset, body_model = build_dataset(args)
     body_model = canonical_body_model(args, body_model)
 
@@ -172,21 +185,20 @@ def main(argv=None):
         else:
             print("[refit] no checkpoint to warm-start from: seeded decoder init")
         del warm
+    if mesh is not None:
+        params = shard_stage1_params(params, mesh)
     state = create_train_state(params, tx)
 
     if args.refit_steps > 0:
-        from humanliff_tpu_torch.data.loader import BatchLoader
-
-        loader = BatchLoader(num_items=len(dataset), item_fn=dataset.item,
-                             batch_size=args.batch_size, seed=args.seed, num_workers=4)
+        loader, seed = rank_loader(args, dataset, mesh)
         it = iter(loader)
-        generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+        generator = torch.Generator(device=device).manual_seed(seed + 1)
         aux_buf = []
         t0 = time.time()
         try:
             for step in range(1, args.refit_steps + 1):
                 aux_buf.append(train_step(state, to_device(next(it), device), cfg, generator,
-                                          body_model))
+                                          body_model, mesh))
                 if step % args.i_print == 0:
                     stacked = torch.stack([torch.stack([a[k] for a in aux_buf])
                                            for k in AUX_KEYS])
@@ -201,7 +213,9 @@ def main(argv=None):
             loader.close()
 
     state.step = save_step
-    path = save(expdir, state)
+    path = save(expdir, state, mesh)
+    if not is_root(mesh):
+        return state
     with open(os.path.join(expdir, f"{save_step:06d}_REFIT.txt"), "w") as f:
         f.write(
             "Recovered checkpoint: planes are the UNMODIFIED exports below "

@@ -15,7 +15,18 @@ the directory holds no checkpoint yet.
 Differences from the JAX CLI:
 
 - ``--device`` (default ``cuda``) raises when CUDA is missing; ``cpu`` runs
-  on the CPU. One device, no mesh.
+  on the CPU.
+- Several GPUs: one process per GPU under ``torchrun``
+  (``python -m torch.distributed.run --nproc_per_node N -m
+  humanliff_tpu_torch.cli.recon_train ...``), where JAX runs one process over
+  all devices. The table shards by instance over the N ranks (N must divide
+  ``--num_instance`` and ``--batch_size``, the global batch); each rank reads
+  its B/N items from a loader of its own, seeded by (seed, rank), the
+  reference's per-rank loaders, where JAX shards one loader's global batch,
+  and draws its render noise from a generator seeded by (seed, rank).
+  ``--dist_backend gloo`` lets ranks share a card. Rank 0 alone writes the
+  logs and the checkpoints, the whole table gathered, in the one-process
+  format; any world size resumes them.
 - ``--data_set_type SynBody`` reads the SMPL-X models
   ``{--smplx_model_dir}/SMPLX_{GENDER}.npz`` (or ``.pkl``), ``TightCap`` the
   SMPL model ``--smpl_model_path`` (files not in the repository:
@@ -33,12 +44,15 @@ from __future__ import annotations
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 
 from humanliff_tpu_torch.nerf.decoder import FlatDecoder
 from humanliff_tpu_torch.nerf.renderer import RenderConfig
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import cli_mesh, is_root, shard_stage1_params
 from humanliff_tpu_torch.train import checkpoint as ckpt
 from humanliff_tpu_torch.train.optim import make_stage1_optimizer
 from humanliff_tpu_torch.train.stage1 import (
@@ -50,7 +64,6 @@ from humanliff_tpu_torch.train.stage1 import (
     train_step,
 )
 from humanliff_tpu_torch.utils import config as cfglib
-from humanliff_tpu_torch.utils.config import device_for
 from humanliff_tpu_torch.utils import logger as loglib
 from humanliff_tpu_torch.utils.runtime import setup_runtime
 
@@ -126,12 +139,32 @@ def to_device(batch, device):
             for k, v in batch.items()}
 
 
-def save(expdir: str, state) -> str:
-    """A full checkpoint of ``state`` and its decoder sidecar."""
-    path = ckpt.save_state(expdir, state.step, state_payload(state))
-    ckpt.save_decoder_npz(os.path.join(expdir, f"decoder_{state.step:06d}.npz"),
-                          FlatDecoder(state.params["decoder"]).state_dict(), state.step)
+def save(expdir: str, state, mesh=None) -> Optional[str]:
+    """A full checkpoint of ``state`` and its decoder sidecar. With ``mesh``
+    every rank gathers, rank 0 writes (the path; None elsewhere), all wait."""
+    payload = state_payload(state, mesh)
+    path = None
+    if payload is not None:
+        path = ckpt.save_state(expdir, state.step, payload)
+        ckpt.save_decoder_npz(os.path.join(expdir, f"decoder_{state.step:06d}.npz"),
+                              FlatDecoder(state.params["decoder"]).state_dict(), state.step)
+    del payload
+    coll.barrier(mesh)
     return path
+
+
+def rank_loader(args, dataset, mesh):
+    """The Stage-1 item loader of this rank: ``--batch_size`` items from
+    ``--seed`` in one process; under a mesh B/W items from a loader seeded by
+    (seed, rank), the reference's per-rank loaders (a divergence from JAX,
+    which shards one loader's global batch). Also the render generator's
+    seed."""
+    from humanliff_tpu_torch.data.loader import BatchLoader
+
+    B = args.batch_size if mesh is None else mesh.share(args.batch_size)
+    seed = args.seed + (0 if mesh is None else 1000 * mesh.rank)
+    return BatchLoader(num_items=len(dataset), item_fn=dataset.item, batch_size=B,
+                       seed=seed, num_workers=4), seed
 
 
 def build_parser():
@@ -145,39 +178,49 @@ def build_parser():
 def main(argv=None):
     setup_runtime()
     args = cfglib.parse_with_config(build_parser(), argv)
-    cfglib.print_args(args)
-    device = device_for(args.device)
+    device, mesh = cli_mesh(args.device, args.dist_backend)
+    root = is_root(mesh)
+    if root:
+        cfglib.print_args(args)
 
     expdir = os.path.join(args.basedir, args.expname)
     os.makedirs(expdir, exist_ok=True)
-    with open(os.path.join(expdir, "args.txt"), "w") as f:
-        for k in sorted(vars(args)):
-            f.write(f"{k} = {getattr(args, k)}\n")
-    log = loglib.configure(expdir, ["stdout", "csv", "json"])
+    if root:
+        with open(os.path.join(expdir, "args.txt"), "w") as f:
+            for k in sorted(vars(args)):
+                f.write(f"{k} = {getattr(args, k)}\n")
+    log = loglib.configure(expdir, ["stdout", "csv", "json"] if root else [])
 
     dataset, body_model = build_dataset(args)
     body_model = canonical_body_model(args, body_model)
     cfg = stage1_config(args)
     tx = make_stage1_optimizer(args.lrate, args.tri_plane_lrate, args.lrate_decay)
-    state = create_train_state(init_params(cfg, args.seed, device), tx)
+    params = init_params(cfg, args.seed, device)
+    if mesh is not None:
+        params = shard_stage1_params(params, mesh)
+    state = create_train_state(params, tx)
+    del params
+
+    def restore(payload):  # under a mesh, this rank's shard of the table
+        if mesh is None:
+            restore_into(state, payload)
+        else:
+            restore_into(state, payload, mesh)
 
     restored, start = ckpt.restore_state(expdir)
     if restored is not None and not args.no_reload:
-        restore_into(state, restored)
+        restore(restored)
         print(f"resumed from step {start}")
     elif restored is None and args.resume_npz:
         from humanliff_tpu_torch.compat.from_jax import load_stage1_npz
 
-        restore_into(state, load_stage1_npz(args.resume_npz))
+        restore(load_stage1_npz(args.resume_npz))
         print(f"resumed the JAX state of {args.resume_npz} at step {state.step}")
     del restored
 
-    from humanliff_tpu_torch.data.loader import BatchLoader
-
-    loader = BatchLoader(num_items=len(dataset), item_fn=dataset.item,
-                         batch_size=args.batch_size, seed=args.seed, num_workers=4)
+    loader, seed = rank_loader(args, dataset, mesh)
     it = iter(loader)
-    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    generator = torch.Generator(device=device).manual_seed(seed + 1)
     aux_buf = []
     wait = 0.0
     t0 = time.time()
@@ -186,7 +229,7 @@ def main(argv=None):
             t_wait = time.perf_counter()
             batch = to_device(next(it), device)
             wait += time.perf_counter() - t_wait
-            aux_buf.append(train_step(state, batch, cfg, generator, body_model))
+            aux_buf.append(train_step(state, batch, cfg, generator, body_model, mesh))
             step = state.step
             if step % args.i_print == 0:
                 stacked = torch.stack([torch.stack([a[k] for a in aux_buf]) for k in AUX_KEYS])
@@ -199,10 +242,12 @@ def main(argv=None):
                 t0, wait = time.time(), 0.0
                 log.dumpkvs(step)
             if step % args.i_weights == 0 or step == 5000:
-                print(f"saved checkpoint {save(expdir, state)}")
+                path = save(expdir, state, mesh)
+                if root:
+                    print(f"saved checkpoint {path}")
     finally:
         loader.close()
-    save(expdir, state)
+    save(expdir, state, mesh)
     return state
 
 

@@ -20,7 +20,10 @@ class BatchLoader:
 
     ``item_fn(idx, rng) -> dict[str, np.ndarray]``; items are stacked along
     axis 0. Each of ``num_workers`` threads draws item indices uniformly with
-    replacement from its own generator, seeded ``seed + 1 + worker``. An
+    replacement from its own generator, seeded ``seed + 1 + worker``, into a
+    queue of its own, and the iterator takes the workers' batches in turn, so
+    the sequence of batches depends on the seed alone (two loaders with one
+    seed give the same batches, as several ranks' index loaders must). An
     exception in a worker is raised by the iterator, not left to hang it.
     """
 
@@ -36,16 +39,19 @@ class BatchLoader:
         self.num_items = num_items
         self.item_fn = item_fn
         self.batch_size = batch_size
-        self._q: queue.Queue = queue.Queue(maxsize=queue_depth)
+        n = max(1, num_workers)
+        self._queues = [queue.Queue(maxsize=max(1, queue_depth // n)) for _ in range(n)]
+        self._next = 0
         self._stop = threading.Event()
         self._threads = [
-            threading.Thread(target=self._worker, args=(seed + 1 + w,), daemon=True)
-            for w in range(max(1, num_workers))
+            threading.Thread(target=self._worker, args=(seed + 1 + w, self._queues[w]),
+                             daemon=True)
+            for w in range(n)
         ]
         for t in self._threads:
             t.start()
 
-    def _worker(self, seed: int):
+    def _worker(self, seed: int, out: queue.Queue):
         rng = np.random.default_rng(seed)
         while not self._stop.is_set():
             idxs = rng.integers(0, self.num_items, self.batch_size)
@@ -56,7 +62,7 @@ class BatchLoader:
                 batch = exc
             while not self._stop.is_set():
                 try:
-                    self._q.put(batch, timeout=1.0)
+                    out.put(batch, timeout=1.0)
                     break
                 except queue.Full:
                     continue
@@ -65,7 +71,8 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:
-            batch = self._q.get()
+            batch = self._queues[self._next].get()
+            self._next = (self._next + 1) % len(self._queues)
             if isinstance(batch, Exception):
                 raise batch
             yield batch

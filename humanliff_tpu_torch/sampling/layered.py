@@ -15,7 +15,11 @@ iteration (``sampling/parallel.py``), opt-in as in JAX.
 ``plan_workload`` splits an N-sample workload into chains of the batch sizes
 of a cost table, and ``generate_workload`` runs them.
 
-Not ported yet: the sharded path (one device).
+Several ranks (``parallel/mesh.py``): ``generate_layer_sharded`` splits a
+layer's batch over a mesh and gathers the samples to every rank (the
+reference's cross-rank sample all_gather, triplane_sample_layered.py:211-219),
+and ``generate_all_layers(mesh=)`` chains it; ``parallel_mesh`` splits each
+Picard window's slots over the ranks instead.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import numpy as np
 import torch
 
 from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion, StepNoise
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import DataMesh
 from humanliff_tpu_torch.sampling.parallel import parallel_p_sample_loop
 
 LAYER_NAMES: List[str] = [
@@ -82,11 +88,13 @@ def generate_layer(
     use_ddim: bool = False,
     parallel_window: int = 0,
     parallel_tol: float = 5e-3,
+    parallel_mesh: Optional[DataMesh] = None,
 ) -> torch.Tensor:
     """Sample one layer: (B, H, W, C) in [-1, 1] by the DDPM ancestral chain,
     or by DDIM with ``use_ddim``. ``parallel_window > 0`` runs the ancestral
     chain by Picard iteration (``parallel_p_sample_loop``) with that window
-    and ``parallel_tol``; it cannot be combined with ``use_ddim``.
+    and ``parallel_tol``, its slots split over ``parallel_mesh`` if given; it
+    cannot be combined with ``use_ddim``.
 
     ``noise`` / ``step_noise`` inject x_T and the per-step noise (see
     ``GaussianDiffusion.p_sample_loop``); otherwise they come from
@@ -103,7 +111,7 @@ def generate_layer(
         samples, _ = parallel_p_sample_loop(
             diffusion, model_fn, shape, generator, x_cond, y, window=parallel_window,
             tol=parallel_tol, clip_denoised=clip_denoised, noise=noise,
-            step_noise=step_noise, device=device)
+            step_noise=step_noise, device=device, mesh=parallel_mesh)
         return samples
     loop = diffusion.ddim_sample_loop if use_ddim else diffusion.p_sample_loop
     return loop(
@@ -111,6 +119,49 @@ def generate_layer(
         x_cond=x_cond, noise=noise, step_noise=step_noise,
         clip_denoised=clip_denoised, model_kwargs={"y": y}, device=device,
     )
+
+
+@torch.no_grad()
+def generate_layer_sharded(
+    model,
+    diffusion: GaussianDiffusion,
+    layer_idx: int,
+    x_cond: Optional[torch.Tensor],
+    generator: Optional[torch.Generator],
+    batch_size: int,
+    image_size: int,
+    channels: int,
+    mesh: DataMesh,
+    use_ddim: bool = False,
+    clip_denoised: bool = True,
+    noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[StepNoise] = None,
+    device="cuda",
+) -> torch.Tensor:
+    """:func:`generate_layer` with the batch split over ``mesh``: each rank
+    draws the global batch's noise (x_T and every step's) from ``generator``,
+    seeded alike on every rank, takes its rows, runs the chain on them, and
+    the samples (B, H, W, C) are gathered to every rank. ``x_cond`` (B, ...),
+    ``noise`` and ``step_noise`` are the global batch's. The draws are the
+    one-process chain's, so the two agree but for the batch size the model
+    runs at."""
+    if batch_size % mesh.size:
+        raise ValueError(f"batch_size {batch_size} must divide over {mesh.size} ranks")
+    device = torch.device(device)
+    rows = mesh.rows(batch_size)
+    shape = (batch_size, image_size, image_size, channels)
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    if step_noise is None:
+        drawn = lambda i: torch.randn(shape, generator=generator, device=device)  # noqa: E731
+    else:
+        drawn = step_noise if callable(step_noise) else step_noise.__getitem__
+    samples = generate_layer(
+        model, diffusion, layer_idx, None if x_cond is None else x_cond[rows], None,
+        batch_size // mesh.size, image_size, channels, clip_denoised=clip_denoised,
+        noise=noise[rows], step_noise=lambda i: drawn(i)[rows], device=device,
+        use_ddim=use_ddim)
+    return coll.gather_rows(samples.contiguous(), mesh)
 
 
 @torch.no_grad()
@@ -168,23 +219,36 @@ def generate_all_layers(
     use_ddim: bool = False,
     parallel_window: int = 0,
     parallel_tol: float = 5e-3,
+    mesh: Optional[DataMesh] = None,
+    parallel_mesh: Optional[DataMesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """The progressive chain; returns ``{layer_name: (B, H, W, C)}``.
 
     ``noises[k] = (x_T, step_noise)`` injects layer k's noise; otherwise it is
     drawn from ``generator``. ``callback(name, samples)`` runs after each layer.
-    ``parallel_window``, ``parallel_tol``: Picard sampling of each layer
-    (:func:`generate_layer`).
+    ``parallel_window``, ``parallel_tol``, ``parallel_mesh``: Picard sampling
+    of each layer (:func:`generate_layer`). With ``mesh`` each layer's batch
+    splits over the ranks (:func:`generate_layer_sharded`) and the chain
+    conditions on the gathered previous layer.
     """
+    if mesh is not None and parallel_window:
+        raise ValueError("mesh splits the batch of the sequential chain; a Picard window "
+                         "splits over parallel_mesh")
     out: Dict[str, torch.Tensor] = {}
     x_cond = None
     for k in range(num_layers):
         noise, step_noise = noises[k] if noises is not None else (None, None)
-        samples = generate_layer(
-            model, diffusion, k, x_cond, generator, batch_size, image_size, channels,
-            noise=noise, step_noise=step_noise, device=device, use_ddim=use_ddim,
-            parallel_window=parallel_window, parallel_tol=parallel_tol,
-        )
+        if mesh is not None:
+            samples = generate_layer_sharded(
+                model, diffusion, k, x_cond, generator, batch_size, image_size, channels,
+                mesh, use_ddim=use_ddim, noise=noise, step_noise=step_noise, device=device)
+        else:
+            samples = generate_layer(
+                model, diffusion, k, x_cond, generator, batch_size, image_size, channels,
+                noise=noise, step_noise=step_noise, device=device, use_ddim=use_ddim,
+                parallel_window=parallel_window, parallel_tol=parallel_tol,
+                parallel_mesh=parallel_mesh,
+            )
         name = LAYER_NAMES[k] if k < len(LAYER_NAMES) else f"layer_{k}"
         out[name] = samples
         if callback is not None:

@@ -15,8 +15,11 @@ t = T-1-i), by default :class:`TimestepNoise`, a generator seeded from
 sequential chain (``GaussianDiffusion.p_sample_loop``) under the same
 ``step_noise``.
 
-Opt-in, as in JAX: the default sampler stays the sequential chain. One
-device; the window sharded across devices (JAX's ``mesh``) is not ported.
+Opt-in, as in JAX: the default sampler stays the sequential chain. With
+``mesh`` (``parallel/mesh.py``) the window's slots split over the ranks:
+each rank runs the model on its window/ranks slots, the candidates are
+gathered, and every rank takes the same acceptance decision and the same
+slide (JAX shards the window axis over its devices the same way).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion, StepNoise
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import DataMesh
 
 _MIX = 0x9E3779B97F4A7C15  # odd 64-bit constant: distinct (seed, t) give distinct seeds
 
@@ -47,7 +52,7 @@ class TimestepNoise:
         return self.at(self.num_timesteps - 1 - i)
 
 
-def _window_step(
+def _window_cand(
     diffusion: GaussianDiffusion,
     model_fn: Callable[..., torch.Tensor],
     X: torch.Tensor,
@@ -56,15 +61,10 @@ def _window_step(
     y: Optional[torch.Tensor],
     noise_at: Callable[[int], torch.Tensor],
     clip_denoised: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One Picard iteration: ``cand[i] = f_{t0-i}(X[i])`` for every slot of
-    the window ``X`` (W, B, ...), where ``X[i]`` estimates x_{t0-i}, in one
-    (W * B)-batch model call; ``noise_at(t)`` is step t's (B, ...) noise.
-
-    Returns (cand (W, B, ...), resid (W-1,)): ``resid[i]`` is the mean
-    absolute change of ``cand[i]`` from the previous guess ``X[i+1]``, per
-    sample, then the max over the batch (one bad trajectory is not accepted
-    because its co-samples converged)."""
+) -> torch.Tensor:
+    """``cand[i] = f_{t0-i}(X[i])`` for every slot of ``X`` (W, B, ...),
+    where ``X[i]`` estimates x_{t0-i}, in one (W * B)-batch model call;
+    ``noise_at(t)`` is step t's (B, ...) noise."""
     W, B = X.shape[:2]
     ts = [max(t0 - i, 0) for i in range(W)]
     flat = X.reshape(W * B, *X.shape[2:])
@@ -76,10 +76,40 @@ def _window_step(
     out = diffusion.p_mean_variance(model_fn, flat, t_flat, xc_flat, clip_denoised, kwargs)
     z = torch.stack([noise_at(t).to(device=X.device, dtype=flat.dtype) for t in ts])
     nonzero = (t_flat != 0).to(flat.dtype).reshape(-1, *([1] * (flat.dim() - 1)))
-    cand = (out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"])
+    return (out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"])
             * z.reshape(flat.shape)).reshape(X.shape)
+
+
+def _residuals(cand: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(W-1,): ``resid[i]`` is the mean absolute change of ``cand[i]`` from
+    the previous guess ``X[i+1]``, per sample, then the max over the batch
+    (one bad trajectory is not accepted because its co-samples converged)."""
     per_sample = (cand[:-1] - X[1:]).abs().mean(dim=tuple(range(2, X.dim())))  # (W-1, B)
-    return cand, per_sample.amax(dim=-1)
+    return per_sample.amax(dim=-1)
+
+
+def _window_step(
+    diffusion: GaussianDiffusion,
+    model_fn: Callable[..., torch.Tensor],
+    X: torch.Tensor,
+    t0: int,
+    x_cond: torch.Tensor,
+    y: Optional[torch.Tensor],
+    noise_at: Callable[[int], torch.Tensor],
+    clip_denoised: bool = True,
+    mesh: Optional[DataMesh] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Picard iteration over the window ``X`` (W, B, ...): returns
+    (cand (W, B, ...), resid (W-1,)) of :func:`_window_cand` and
+    :func:`_residuals`. With ``mesh`` each rank evaluates its W/ranks slots
+    and the candidates are gathered to every rank."""
+    if mesh is None:
+        cand = _window_cand(diffusion, model_fn, X, t0, x_cond, y, noise_at, clip_denoised)
+    else:
+        rows = mesh.rows(X.shape[0])
+        cand = coll.gather_rows(_window_cand(diffusion, model_fn, X[rows], t0 - rows.start,
+                                             x_cond, y, noise_at, clip_denoised), mesh)
+    return cand, _residuals(cand, X)
 
 
 def _slide(cand: torch.Tensor, k: int) -> torch.Tensor:
@@ -105,6 +135,7 @@ def parallel_p_sample_loop(
     step_noise: Optional[StepNoise] = None,
     max_iters: Optional[int] = None,
     device="cuda",
+    mesh: Optional[DataMesh] = None,
 ) -> Tuple[torch.Tensor, int]:
     """Ancestral sampling by sliding-window Picard iteration.
 
@@ -114,11 +145,15 @@ def parallel_p_sample_loop(
     ``noise`` is x_T and ``step_noise`` the per-step noise; missing, x_T is
     drawn from ``generator`` and the step noise is a :class:`TimestepNoise`
     seeded from it. ``y`` defaults to zeros. Returns ``(samples, model
-    calls)``; the iteration budget is ``max_iters`` or 10 T.
+    calls)``; the iteration budget is ``max_iters`` or 10 T. ``mesh``: the
+    window's slots split over its ranks (the window must divide over them),
+    which all return the same samples.
     """
     device = torch.device(device)
     T = diffusion.num_timesteps
     W = min(window, T)
+    if mesh is not None and W % mesh.size:
+        raise ValueError(f"window {W} must divide over {mesh.size} ranks")
     shape = tuple(shape)
     if noise is None:
         noise = torch.randn(shape, generator=generator, device=device)
@@ -138,7 +173,7 @@ def parallel_p_sample_loop(
     budget = max_iters or 10 * T
     while t0 >= 0 and iters < budget:
         cand, resid = _window_step(diffusion, model_fn, X, t0, x_cond, y, noise_at,
-                                   clip_denoised)
+                                   clip_denoised, mesh)
         iters += 1
         r = resid.tolist()  # the W-1 residuals: the one readback per iteration
         k = 1

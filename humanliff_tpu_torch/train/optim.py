@@ -186,10 +186,14 @@ class Stage2Optimizer:
                                    self.grad_clip_norm / norm))
         return grads
 
-    def step_(self, params: torch.Tensor, grads: torch.Tensor, state: OptState) -> OptState:
+    def step_(self, params: torch.Tensor, grads: torch.Tensor, state: OptState,
+              part: slice = slice(None)) -> OptState:
         """One update of ``params`` in place from raw ``grads`` (clipped in
-        place); returns the new state (moments updated in place)."""
+        place); returns the new state (moments updated in place). ``part``:
+        ZeRO-1, where the moments cover one range of the flat buffers: the
+        whole gradient is clipped (its norm is the global one), and only
+        ``params[part]`` steps."""
         self.clip_(grads)
         lr = stage2_lr_schedule(self.lr, self.anneal_steps)(int(state["count"]))
-        return adam_step_(params, grads, state, lr, self.b1, self.b2, self.eps,
+        return adam_step_(params[part], grads[part], state, lr, self.b1, self.b2, self.eps,
                           self.weight_decay)

@@ -21,19 +21,36 @@ master weights; GroupNorm and the diffusion arithmetic stay fp32.
 Dropout: the JAX step runs the UNet with ``deterministic=True``, so dropout is
 off in training whatever ``--dropout`` says; the port matches it by running
 the UNet in eval mode (the reference trains with dropout on).
+
+Several ranks (``mesh``, ``parallel/mesh.py``): each rank runs the step on
+its B/W rows of the global batch of B. Timesteps and noise are drawn for the
+global batch from a generator seeded alike on every rank, then sliced; each
+microbatch's loss is divided by the global B, and the gradient buffer is
+all-reduced after the last microbatch, so the gradient norm, the clip chain
+and the metrics are the one-process ones. The loss-aware sampler updates
+from the gathered (t, loss) of the whole batch: every rank keeps the same
+sampler state. Without ZeRO every rank steps the whole state (DDP). With
+ZeRO-1 (``zero``) each rank owns one offset range of the flat buffers
+(``parallel/mesh.py::zero_ranges``), and Adam's moments and each EMA exist
+only for that range: each rank clips the whole all-reduced gradient, steps
+its range of the parameters and the EMA, and broadcasts its range. JAX splits
+each leaf on its largest divisible axis instead; a checkpoint is the same
+file either way (:func:`state_payload` gathers the ranges).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from humanliff_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from humanliff_tpu_torch.diffusion.resample import LossSecondMomentResampler, UniformSampler
+from humanliff_tpu_torch.parallel import collectives as coll
+from humanliff_tpu_torch.parallel.mesh import DataMesh, replicate, zero_ranges
 from humanliff_tpu_torch.train.optim import OptState, Stage2Optimizer
 
 StateDict = Dict[str, torch.Tensor]
@@ -100,7 +117,9 @@ class Stage2State:
     """The train state. ``params`` and ``grads`` are the storage of the
     model's parameters and gradients; ``ema_params`` is keyed by str(rate).
     ``opt_state["count"]`` counts optimizer updates: it restarts at 0 when a
-    light checkpoint (no moments) is resumed, while ``step`` does not."""
+    light checkpoint (no moments) is resumed, while ``step`` does not.
+    ``ranges``: ZeRO-1's offset range of each rank, where the moments and the
+    EMAs hold this rank's range only (None: they hold the whole buffer)."""
 
     step: int
     params: torch.Tensor
@@ -109,14 +128,30 @@ class Stage2State:
     ema_params: Dict[str, torch.Tensor]
     sampler_state: Optional[Dict[str, torch.Tensor]]
     layout: ParamLayout
+    ranges: Optional[List[Tuple[int, int]]] = None
+    rank: int = 0
+
+    @property
+    def part(self) -> slice:
+        """This rank's range of the flat buffers (all of them without ZeRO)."""
+        return slice(None) if self.ranges is None else slice(*self.ranges[self.rank])
 
 
-def create_stage2_state(model: nn.Module, cfg: Stage2Config, num_timesteps: int) -> Stage2State:
+def create_stage2_state(model: nn.Module, cfg: Stage2Config, num_timesteps: int,
+                        mesh: Optional[DataMesh] = None, zero: bool = False) -> Stage2State:
     """A fresh state from the model's current weights, on the model's device;
-    the model's parameters become views of ``state.params``."""
+    the model's parameters become views of ``state.params``. With ``mesh``
+    the weights are rank 0's on every rank, and ``zero`` splits the moments
+    and the EMAs by offset range of the flat buffer (ZeRO-1; a divergence
+    from JAX, which splits each leaf on its largest divisible axis)."""
     device = next(model.parameters()).device
     layout = ParamLayout(model)
     params = layout.flatten({n: p.detach() for n, p in model.named_parameters()}, device)
+    ranges = None
+    if mesh is not None:
+        replicate([params], mesh)
+        if zero:
+            ranges = zero_ranges(layout.numel, mesh.size)
     grads = torch.zeros_like(params)
     p_views, g_views = layout.views(params), layout.views(grads)
     for name, p in model.named_parameters():
@@ -126,24 +161,35 @@ def create_stage2_state(model: nn.Module, cfg: Stage2Config, num_timesteps: int)
         sampler_state = LossSecondMomentResampler(num_timesteps).init_state(device)
     elif cfg.schedule_sampler != "uniform":
         raise NotImplementedError(f"unknown schedule sampler: {cfg.schedule_sampler}")
-    return Stage2State(
-        step=0, params=params, grads=grads, opt_state=cfg.optimizer().init(params),
-        ema_params={str(r): params.clone() for r in cfg.ema_rates},
-        sampler_state=sampler_state, layout=layout,
-    )
+    state = Stage2State(step=0, params=params, grads=grads, opt_state={}, ema_params={},
+                        sampler_state=sampler_state, layout=layout, ranges=ranges,
+                        rank=0 if mesh is None else mesh.rank)
+    state.opt_state = cfg.optimizer().init(params[state.part])
+    state.ema_params = {str(r): params[state.part].clone() for r in cfg.ema_rates}
+    return state
 
 
-def state_payload(state: Stage2State, light: bool = False) -> Dict:
+def state_payload(state: Stage2State, light: bool = False,
+                  mesh: Optional[DataMesh] = None) -> Optional[Dict]:
     """The checkpoint of ``state``: step, params and EMA as state dicts, and
     unless ``light`` the optimizer (moments as state dicts, count) and the
     sampler state. Values are views of the state's buffers, so a save writes
-    each buffer once."""
+    each buffer once. Under ZeRO every rank calls it: the ranges are gathered
+    into host memory on rank 0, which gets the payload; the others get None."""
+    def full(buf):
+        if state.ranges is None:
+            return buf
+        return coll.gather_to_root(buf, state.ranges, state.layout.numel, mesh)
+
+    ema = {r: full(e) for r, e in state.ema_params.items()}
+    mom = {} if light else {k: full(state.opt_state[k]) for k in ("mu", "nu")}
+    if mesh is not None and mesh.rank != 0:
+        return None
     views = state.layout.views
     payload = {"step": state.step, "params": views(state.params),
-               "ema_params": {r: views(e) for r, e in state.ema_params.items()}}
+               "ema_params": {r: views(e) for r, e in ema.items()}}
     if not light:
-        payload["opt_state"] = {"mu": views(state.opt_state["mu"]),
-                                "nu": views(state.opt_state["nu"]),
+        payload["opt_state"] = {"mu": views(mom["mu"]), "nu": views(mom["nu"]),
                                 "count": int(state.opt_state["count"])}
         payload["sampler_state"] = state.sampler_state
     return payload
@@ -151,21 +197,26 @@ def state_payload(state: Stage2State, light: bool = False) -> Dict:
 
 def restore_into(state: Stage2State, restored: Dict) -> bool:
     """Load a checkpoint (:func:`state_payload`'s dict) into ``state`` in
-    place, the model's parameters with it. A light checkpoint leaves the
-    optimizer and the sampler as they are (fresh). Returns whether it was a
-    full one."""
+    place, the model's parameters with it; under ZeRO the moments and EMAs
+    take this rank's range, so a checkpoint of any world size resumes. A
+    light checkpoint leaves the optimizer and the sampler as they are
+    (fresh). Returns whether it was a full one."""
     device = state.params.device
     state.step = int(restored["step"])
     for name, v in state.layout.views(state.params).items():
         v.copy_(restored["params"][name])
-    state.ema_params = {r: state.layout.flatten(e, device)
-                        for r, e in restored["ema_params"].items()}
+
+    def flat(state_dict):
+        if state.ranges is None:
+            return state.layout.flatten(state_dict, device)
+        return state.layout.flatten(state_dict, "cpu")[state.part].to(device)
+
+    state.ema_params = {r: flat(e) for r, e in restored["ema_params"].items()}
     if "opt_state" not in restored:
         return False
     opt = restored["opt_state"]
     for key in ("mu", "nu"):
-        for name, v in state.layout.views(state.opt_state[key]).items():
-            v.copy_(opt[key][name])
+        state.opt_state[key].copy_(flat(opt[key]))
     state.opt_state["count"] = int(opt["count"])
     sampler = restored.get("sampler_state")
     state.sampler_state = (None if sampler is None
@@ -209,6 +260,7 @@ def train_step(
     t: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> Dict[str, torch.Tensor]:
     """One optimization step on ``state`` (updated in place); returns the metrics.
 
@@ -217,6 +269,8 @@ def train_step(
     (:func:`gather_batch`). A super-resolution batch is ``{"x", "low_res"}``
     (no x_cond; y only with ``class_cond``). ``t`` (B,) and ``noise``
     (B, H, W, C) may be given; whatever is missing is drawn from ``generator``.
+    With ``mesh``, ``batch`` is this rank's rows and ``t``, ``noise`` and the
+    metrics are the global batch's (module docstring).
     """
     model.eval()  # dropout off, as the JAX step's deterministic=True
     if "planes" in batch:
@@ -224,7 +278,9 @@ def train_step(
     else:
         x, x_cond = batch["x"], batch.get("x_cond")
     y, low_res = batch.get("y"), batch.get("low_res")
-    B, device, T = x.shape[0], x.device, diffusion.num_timesteps
+    device, T = x.device, diffusion.num_timesteps
+    B = x.shape[0] * (1 if mesh is None else mesh.size)  # the global batch
+    rows = slice(None) if mesh is None else mesh.rows(B)
 
     lsm = LossSecondMomentResampler(T) if cfg.schedule_sampler == "loss-second-moment" else None
     if t is None:
@@ -237,16 +293,18 @@ def train_step(
     else:
         weights = torch.ones(B, device=device)
     if noise is None:
-        noise = torch.randn(x.shape, generator=generator, device=device)
+        noise = torch.randn((B, *x.shape[1:]), generator=generator, device=device)
+    t_all, t, weights, noise = t, t[rows], weights[rows], noise[rows]
 
-    mb = cfg.microbatch if 0 < cfg.microbatch < B else B
-    if B % mb:
-        raise ValueError(f"microbatch {mb} does not divide batch {B}")
+    B_local = x.shape[0]
+    mb = cfg.microbatch if 0 < cfg.microbatch < B_local else B_local
+    if B_local % mb:
+        raise ValueError(f"microbatch {mb} does not divide batch {B_local}")
     model_fn = model_fn_for(model)
     state.grads.zero_()
     loss = torch.zeros((), device=device)
     per_ex = []
-    for s in range(0, B, mb):
+    for s in range(0, B_local, mb):
         sl = slice(s, s + mb)
         kwargs = {"y": y[sl]} if cfg.class_cond else {}
         if low_res is not None:
@@ -261,11 +319,18 @@ def train_step(
         loss += micro.detach()
         per_ex.append(losses.detach())
     per_ex_losses = torch.cat(per_ex)
+    if mesh is not None:
+        coll.all_reduce_(state.grads, mesh)
+        coll.all_reduce_(loss, mesh)
+        per_ex_losses, t = coll.all_gather(per_ex_losses, mesh), t_all
 
     grad_norm = torch.linalg.vector_norm(state.grads)  # of the raw gradients
-    state.opt_state = cfg.optimizer().step_(state.params, state.grads, state.opt_state)
+    part = state.part
+    state.opt_state = cfg.optimizer().step_(state.params, state.grads, state.opt_state, part)
     for rate, ema in state.ema_params.items():
-        ema.mul_(float(rate)).add_(state.params, alpha=1.0 - float(rate))
+        ema.mul_(float(rate)).add_(state.params[part], alpha=1.0 - float(rate))
+    if state.ranges is not None:
+        coll.broadcast_ranges_(state.params, state.ranges, mesh)
     if lsm is not None:
         state.sampler_state = lsm.update(state.sampler_state, t, per_ex_losses)
     state.step += 1

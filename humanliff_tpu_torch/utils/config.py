@@ -7,6 +7,8 @@ of ``key = value`` lines (CLI wins). The canonical SynBody/TightCap defaults liv
 
 Differences from the JAX module: ``--device`` (``cuda`` or ``cpu``) is added,
 and ``device_for`` turns it into a device for every CLI of the port;
+``--dist_backend`` (``nccl`` or ``gloo``) picks the process group's backend
+under ``torchrun`` (``parallel/mesh.py``);
 ``--triplane_ch`` refuses any width but 27 (``decoder_channels``);
 ``--dispatch_sync_every`` (a readback cadence for the JAX package's remote
 TPU) is dropped, and like any unknown flag it is ignored
@@ -129,6 +131,9 @@ def stage1_parser() -> argparse.ArgumentParser:
     p.add_argument("--use_bf16", type=str2bool, default=False)
     p.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"),
                    help="cuda raises where CUDA is missing; cpu runs on the CPU")
+    p.add_argument("--dist_backend", type=str, default=None, choices=("nccl", "gloo"),
+                   help="under torchrun: the process group's backend (default nccl on "
+                        "cuda, gloo on the cpu); gloo lets ranks share a card")
     p.add_argument("--seed", type=int, default=0)
     return p
 

@@ -93,6 +93,17 @@ def test_reference_import_and_single_device_modules_are_checked():
         assert os.path.join("humanliff_tpu_torch", module) in files, module
 
 
+def test_multi_device_modules_are_checked():
+    files = set(_port_files())
+    for module in ("parallel/__init__.py", "parallel/mesh.py", "parallel/collectives.py",
+                   "nerf/sharded.py", "train/stage1.py", "train/stage2.py",
+                   "train/stage1_ft.py", "sampling/layered.py", "sampling/parallel.py",
+                   "cli/diff_train.py", "cli/recon_train.py", "cli/recon_ft.py",
+                   "cli/recon_refit.py", "cli/diff_sample.py", "cli/quality_eval.py",
+                   "cli/quality_stage2.py"):
+        assert os.path.join("humanliff_tpu_torch", module) in files, module
+
+
 def test_importing_every_port_module_loads_no_jax():
     modules = [p[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for p in _port_files() if p.startswith("humanliff_tpu_torch")]

@@ -14,7 +14,8 @@ report, ``--report_only``, and a failure report on a failed leg, as
 ``test_failure_report_always_written``.
 
 Named divergences: ``--out_dir`` defaults to ``runs/quality_torch``; one
-device, so ``--diff_batch_size`` need not divide a mesh.
+process here, so ``--diff_batch_size`` need not divide a mesh (the campaign
+under a 2-rank mesh: tests/test_torch_parallel.py).
 """
 
 import ast
